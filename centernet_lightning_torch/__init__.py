@@ -1,0 +1,20 @@
+"""centernet_lightning_torch — the PyTorch/CUDA port of centernet_lightning_tpu.
+
+The JAX package beside it is the reference: every module here keeps its
+counterpart's path (`ops/decode.py` <- `centernet_lightning_tpu/ops/decode.py`)
+and its public layouts (NHWC images and maps, `(N, H*W)` flat indices with
+idx = y*W + x), so the two can be compared on identical inputs and weights.
+Inside, models run NCHW convolutions in `torch.channels_last` memory format;
+the one hand-written kernel of the serving path is the fused peak/argmax
+decode (`csrc/peak_decode.cu`, wrapped by `ops/peak_decode.py`).
+
+Entry points default to `device="cuda"` and never fall back to the CPU;
+pass `device="cpu"` explicitly to run the plain PyTorch versions.
+"""
+
+__version__ = "0.1.0"
+
+from .api import CenterNetPredictor, build_centernet  # noqa: E402
+from .models.centernet import CenterNet  # noqa: E402
+
+__all__ = ["CenterNet", "CenterNetPredictor", "build_centernet", "__version__"]
