@@ -4,9 +4,10 @@ The JAX package beside it is the reference: every module here keeps its
 counterpart's path (`ops/decode.py` <- `centernet_lightning_tpu/ops/decode.py`)
 and its public layouts (NHWC images and maps, `(N, H*W)` flat indices with
 idx = y*W + x), so the two can be compared on identical inputs and weights.
-Inside, models run NCHW convolutions in `torch.channels_last` memory format;
-the one hand-written kernel of the serving path is the fused peak/argmax
-decode (`csrc/peak_decode.cu`, wrapped by `ops/peak_decode.py`).
+Inside, models run NCHW convolutions in `torch.channels_last` memory format.
+The hand-written CUDA kernels (`csrc/`) are the fused peak/argmax decode
+(`ops/peak_decode.py`) and the deformable convolution's tap sampling
+(`ops/dcn_sample.py`) and fused sampling + matmul (`ops/dcn_fused.py`).
 
 Entry points default to `device="cuda"` and never fall back to the CPU;
 pass `device="cpu"` explicitly to run the plain PyTorch versions.

@@ -1,6 +1,7 @@
 """Output heads (port of models/heads.py: GenericHead).
 
-`blocks.{i}` is flax `ConvNormAct_{i}` and `out_conv` is flax `out_conv`.
+`blocks.{i}` is flax `ConvNormAct_{i}` (or `DeformableConvBlock_{i}` for a
+DCN `block`) and `out_conv` is flax `out_conv`.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ __all__ = ["GenericHead"]
 
 
 class GenericHead(nn.Module):
-    """depth x ConvNormAct(width, 3), then a 1x1 `out_conv` whose bias is
+    """depth x block(width, 3), then a 1x1 `out_conv` whose bias is
     filled with `init_bias` (zeros when None)."""
 
     def __init__(self, in_channels: int, out_channels: int, width: int = 256,

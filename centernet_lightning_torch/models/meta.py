@@ -16,6 +16,7 @@ from torch import nn
 from .backbones import build_backbone
 from .backbones.resnet import BasicBlock, Bottleneck
 from .heads import GenericHead
+from .layers import DeformableConvBlock
 from .necks import build_neck
 
 __all__ = ["GenericModel", "create_model", "init_weights"]
@@ -96,8 +97,10 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from `generator`: he_normal
     convolutions, lecun_normal for the residual projections and the head
     output convolutions, unit/zero BatchNorm with the last BN of each
-    residual block zeroed, and each head's constant output bias. Same
-    distributions, not the same numbers: jax.random and torch differ."""
+    residual block zeroed, and each head's constant output bias; a DCN
+    block's offset and mask convolutions are zero and its deformable
+    kernel he_normal over fan-in k^2 C. Same distributions, not the same
+    numbers: jax.random and torch differ."""
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Conv2d):
             plain = name.endswith(("downsample.0", "out_conv"))
@@ -113,3 +116,9 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
             mod.bn3.weight.zero_()
         elif isinstance(mod, GenericHead) and mod.init_bias is not None:
             mod.out_conv.bias.fill_(mod.init_bias)
+        elif isinstance(mod, DeformableConvBlock):
+            for conv in (mod.conv_offset, mod.conv_mask):
+                if conv is not None:
+                    conv.weight.zero_()
+                    conv.bias.zero_()
+            _trunc_normal_fan_in(mod.deform.weight, 2.0, generator)

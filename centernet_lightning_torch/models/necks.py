@@ -18,12 +18,15 @@ __all__ = ["FPN", "NECKS", "build_neck"]
 class FPN(nn.Module):
     """Top-down feature pyramid; emits the finest level.
 
-    `blocks` holds every ConvNormAct in the order the flax FPN calls them,
-    so `blocks.{i}` is flax `ConvNormAct_{i}`: the 1x1 laterals on C2..C4
-    (no activation), the 1x1 top on C5, then per merge step from s16 down
-    to s4 an optional 3x3 narrowing block (`upsample_channels`) and the 3x3
-    merge block. The JAX package's structural weight pairer relies on this
-    registration order.
+    `blocks` holds every block in the order the flax FPN calls them: the
+    1x1 laterals on C2..C4 (no activation) and the 1x1 top on C5, all
+    ConvNormAct, then per merge step from s16 down to s4 an optional 3x3
+    narrowing block (`upsample_channels`) and the 3x3 merge block, both of
+    `conv_type`. With `conv_type: normal` `blocks.{i}` is flax
+    `ConvNormAct_{i}`; with a DCN type the 3x3 blocks are flax
+    `DeformableConvBlock_{j}`, counted on their own, at
+    `blocks.{len(in_channels) + j}` (utils/convert.py). The JAX package's structural weight pairer relies
+    on this registration order.
     """
 
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,

@@ -1,4 +1,6 @@
-from . import decode, peak_decode, preprocess
+from . import dcn, dcn_fused, dcn_sample, decode, peak_decode, preprocess
+from .dcn_fused import dcn_fused_conv
+from .dcn_sample import dcn_sample_taps
 from .decode import (
     decode_detections,
     decode_detections_auto,

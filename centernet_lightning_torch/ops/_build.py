@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into a shared library with a
 plain C interface, `_build/lib<name>-<hash>.so`, and loads with ctypes.
-The hash covers the source and the flags, so an edited kernel rebuilds and
-a stale library is never loaded. Nothing builds at import: `load(name)`
+The hash covers the source, the shared headers `csrc/*.cuh` and the flags,
+so an edited kernel or header rebuilds and a stale library is never loaded. Nothing builds at import: `load(name)`
 builds on first use, and `build_all()` starts one nvcc per source at once.
 """
 from __future__ import annotations
@@ -46,6 +46,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

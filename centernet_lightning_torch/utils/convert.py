@@ -12,15 +12,22 @@
     `blocks.<i>` (with `Conv_0`/`BatchNorm_0` -> `conv`/`bn`); ResNet
     `stem_conv`/`stem_bn` -> `conv1`/`bn1`, `layer<s>_block<b>` ->
     `layer<s>.<b>` (with `Conv_<i>`/`BatchNorm_<i>` -> `conv<i+1>`/`bn<i+1>`
-    and `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`).
+    and `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`);
+  - DCN: flax counts `DeformableConvBlock_<j>` apart from `ConvNormAct_<i>`.
+    In every ported scope (FPN, GenericHead) the plain blocks are called
+    before the deformable ones, so `DeformableConvBlock_<j>` is
+    `blocks.<P + j>`, P being the number of `ConvNormAct_*` beside it.
+    Inside, `Conv_0`/`Conv_1`/`BatchNorm_0` -> `conv_offset`/`conv_mask`/
+    `bn`, and the tap-major `kernel` (k^2 C, O) and `bias` ->
+    `deform.weight` (O, C, k, k) and `deform.bias`.
 
-A scope this slice does not port (DCN, Fuse, SPP, reid classifier) raises
+A scope this slice does not port (Fuse, SPP, reid classifier) raises
 KeyError rather than being dropped.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -29,9 +36,13 @@ __all__ = ["variables_to_state_dict"]
 
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
          "mean": "running_mean", "var": "running_var"}
+_DCN_CHILD = {"Conv_0": "conv_offset", "Conv_1": "conv_mask",
+              "BatchNorm_0": "bn"}
 
 
-def _scope(name: str, parent: str) -> str:
+def _scope(name: str, parent: str, siblings) -> str:
+    """Torch name of the flax scope `name` inside `parent`, whose params
+    subtree holds `siblings`."""
     if name.startswith("heads_"):
         return "heads." + name[len("heads_"):]
     if name in ("backbone", "neck", "out_conv"):
@@ -46,6 +57,12 @@ def _scope(name: str, parent: str) -> str:
     m = re.fullmatch(r"ConvNormAct_(\d+)", name)
     if m:
         return f"blocks.{m.group(1)}"
+    m = re.fullmatch(r"DeformableConvBlock_(\d+)", name)
+    if m:
+        plain = sum(1 for s in siblings if re.fullmatch(r"ConvNormAct_\d+", s))
+        return f"blocks.{plain + int(m.group(1))}"
+    if parent.startswith("DeformableConvBlock_") and name in _DCN_CHILD:
+        return _DCN_CHILD[name]
     m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", name)
     if m and parent.startswith("ConvNormAct_") and m.group(2) == "0":
         return "conv" if m.group(1) == "Conv" else "bn"
@@ -60,38 +77,56 @@ def _scope(name: str, parent: str) -> str:
 
 
 def _walk(tree: Dict[str, Any], path: Tuple[str, ...] = ()
-          ) -> List[Tuple[Tuple[str, ...], Any]]:
-    out = []
+          ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
     for k, v in tree.items():
         if isinstance(v, dict):
-            out.extend(_walk(v, path + (k,)))
+            yield from _walk(v, path + (k,))
         else:
-            out.append((path + (k,), v))
-    return out
+            yield path + (k,), v
 
 
-def _torch_key(path: Tuple[str, ...]) -> str:
+def _torch_key(path: Tuple[str, ...], params: Dict[str, Any]) -> str:
+    """Torch key of the flax leaf at `path`; scopes are resolved against
+    the params tree, which holds every scope (batch_stats only those with
+    a BatchNorm)."""
     parts = []
+    node = params
     for i, name in enumerate(path[:-1]):
-        parts.append(_scope(name, path[i - 1] if i else ""))
+        parts.append(_scope(name, path[i - 1] if i else "", node))
+        node = node.get(name, {})
     leaf = path[-1]
     if leaf not in _LEAF:
         raise KeyError(f"no port of flax leaf {'/'.join(path)}")
+    if len(path) > 1 and path[-2].startswith("DeformableConvBlock_"):
+        return ".".join(parts + ["deform", _LEAF[leaf]])
     return ".".join(parts + [_LEAF[leaf]])
+
+
+def _kernel(path: Tuple[str, ...], arr: np.ndarray, params) -> np.ndarray:
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)                    # HWIO -> OIHW
+    if arr.ndim == 2 and path[-2].startswith("DeformableConvBlock_"):
+        # tap-major (k*k*C, O), row (ty*k + tx)*C + c -> (O, C, k, k); the
+        # offset conv beside it gives k and C
+        node = params
+        for name in path[:-1]:
+            node = node[name]
+        k, _, c, _ = np.shape(node["Conv_0"]["kernel"])
+        return arr.reshape(k, k, c, -1).transpose(3, 2, 0, 1)
+    raise KeyError(f"no port of dense kernel {'/'.join(path)}")
 
 
 def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """flax variables of the JAX GenericModel -> the port's state_dict."""
+    params = variables.get("params", {})
     sd: Dict[str, torch.Tensor] = {}
     for col in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(col, {})):
             arr = np.asarray(leaf)
             if path[-1] == "kernel":
-                if arr.ndim != 4:
-                    raise KeyError(f"no port of dense kernel {'/'.join(path)}")
-                arr = arr.transpose(3, 2, 0, 1)             # HWIO -> OIHW
-            sd[_torch_key(path)] = torch.from_numpy(np.array(arr))  # own copy
+                arr = _kernel(path, arr, params)
+            key = _torch_key(path, params)
+            sd[key] = torch.from_numpy(np.array(arr))      # own copy
             if path[-1] == "mean":
-                prefix = _torch_key(path).rsplit(".", 1)[0]
-                sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+                sd[f"{key.rsplit('.', 1)[0]}.num_batches_tracked"] = torch.tensor(0)
     return sd

@@ -36,6 +36,32 @@ def _is_bn(path) -> bool:
     return any("BatchNorm" in k or k.endswith("_bn") for k in keys)
 
 
+def perturb_dcn(variables, rng, target=1.5):
+    """Random offset and mask convolutions (zero at init) whose outputs
+    have a std near `target` for O(1) inputs, so offsets reach past +-1."""
+    def draw(path, x):
+        keys = [getattr(p, "key", "") for p in path]
+        # a block's own tree is {"params": {"Conv_0": ...}}
+        if (len(keys) >= 3 and keys[-2] in ("Conv_0", "Conv_1")
+                and (keys[-3].startswith("DeformableConvBlock")
+                     or len(keys) == 3)):
+            x = np.asarray(x)
+            if keys[-1] == "kernel":
+                fan_in = x.shape[0] * x.shape[1] * x.shape[2]
+                return rng.normal(scale=target / np.sqrt(fan_in),
+                                  size=x.shape).astype(np.float32)
+            return rng.normal(scale=0.3 * target, size=x.shape).astype(np.float32)
+        return x
+    return jax.tree_util.tree_map_with_path(draw, variables)
+
+
+def init_flax_dcn(module, x, rng, **kwargs):
+    """Initialise a flax module, then give it non-trivial BatchNorm and
+    DCN offset/mask weights (numpy leaves)."""
+    v = to_numpy_tree(module.init(jax.random.PRNGKey(0), x, **kwargs))
+    return perturb_dcn(perturb_batch_norm(v, rng), rng)
+
+
 def scoped_state_dict(variables, scope: str, prefix: str):
     """Convert the variables of one flax submodule by nesting them under
     the flax `scope` it would have in a model, then strip the torch

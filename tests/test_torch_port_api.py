@@ -171,7 +171,7 @@ def test_build_from_yaml_and_deferred_options(tmp_path):
         ({"backbone": "dla34"}, "item 8"),
         ({"neck": "BiFPN"}, "item 8"),
         ({"neck_config": {"weighted": True}}, "item 8"),
-        ({"head_config": {"block": "dcn"}}, "item 9"),
+        ({"head_config": {"block": "separable"}}, "item 8"),
         ({"reid_config": {"emb_dim": 8}}, "item 10"),
         ({"backbone_config": {"frozen_stages": 2}}, "item 7"),
     ]:
