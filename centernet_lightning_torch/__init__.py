@@ -6,8 +6,10 @@ and its public layouts (NHWC images and maps, `(N, H*W)` flat indices with
 idx = y*W + x), so the two can be compared on identical inputs and weights.
 Inside, models run NCHW convolutions in `torch.channels_last` memory format.
 The hand-written CUDA kernels (`csrc/`) are the fused peak/argmax decode
-(`ops/peak_decode.py`) and the deformable convolution's tap sampling
-(`ops/dcn_sample.py`) and fused sampling + matmul (`ops/dcn_fused.py`).
+(`ops/peak_decode.py`), the deformable convolution's tap sampling
+(`ops/dcn_sample.py`) and fused sampling + matmul (`ops/dcn_fused.py`),
+both differentiable through their plain twins, and the 3x3 / stride-2 max
+pool (`ops/pool.py`). Training lives in `train/` (`Trainer`).
 
 Entry points default to `device="cuda"` and never fall back to the CPU;
 pass `device="cpu"` explicitly to run the plain PyTorch versions.

@@ -16,10 +16,12 @@ from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from .data.inference import InferenceDataset
 from .models.centernet import CenterNet
 from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
+from .train.checkpoint import load_checkpoint
 from .train.config import load_config, normalize_config
 
 __all__ = ["CenterNetPredictor", "build_centernet"]
@@ -88,14 +90,23 @@ class CenterNetPredictor:
                               dtype=self._dtype())
         return x.to(self._dtype())
 
-    def __call__(self, images, train: bool = False) -> Dict[str, torch.Tensor]:
+    def __call__(self, images, train: bool = False):
         """Raw forward: the encoded NHWC outputs {heatmap (logits), box_2d}.
-        Images are fed as given, only cast to the compute dtype."""
-        if train:
-            raise NotImplementedError(
-                "train-mode forward is ported with the training slice "
-                "(ROADMAP Queue 1 item 7)")
+        Images are fed as given, only cast to the compute dtype.
+
+        train=True runs the train-mode forward (batch statistics, autograd
+        on) and returns (outputs, {"batch_stats": updated BatchNorm
+        buffers}), as the JAX predictor returns flax's mutated variables;
+        the predictor's own statistics are left as they were."""
         x = torch.as_tensor(images).to(self.device, self._dtype())
+        if train:
+            stats = {k: b.clone() for k, b in self.model.named_buffers()}
+            self.model.train()
+            try:
+                outputs = functional_call(self.model, stats, (x,))
+            finally:
+                self.model.eval()
+            return outputs, {"batch_stats": stats}
         with torch.inference_mode():
             return self.model(x)
 
@@ -194,22 +205,35 @@ def build_centernet(
     torch_ckpt: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> CenterNetPredictor:
-    """YAML path or config dict -> predictor on `device`, with weights drawn
-    from a torch.Generator seeded by `seed`. Gen-A and Gen-B config shapes
-    are both accepted (train/config.py normalises them)."""
-    if checkpoint is not None or torch_ckpt is not None or (
-            isinstance(config, str) and os.path.isdir(config)):
-        raise NotImplementedError(
-            "loading weights from a checkpoint is ported with the training "
-            "slice (ROADMAP Queue 1 item 7)")
-    if isinstance(config, str):
-        config = load_config(config)
-    config = normalize_config(config)
-    model_cfg = dict(config.get("model", config))
+    """YAML path, config dict or checkpoint directory -> predictor on
+    `device`. Gen-A and Gen-B config shapes are both accepted
+    (train/config.py normalises them). Weights: from `torch_ckpt` (a
+    reference Lightning checkpoint), else from the port's checkpoint
+    (`checkpoint`, or `config` itself when it is a run directory with
+    hparams.json; its EMA weights when it kept them), else drawn from a
+    torch.Generator seeded by `seed`."""
+    state = None
+    if isinstance(config, str) and os.path.isdir(config):
+        state, model_cfg = load_checkpoint(config)
+        if model_cfg is None:
+            raise ValueError(f"{config} has no hparams.json")
+    else:
+        if isinstance(config, str):
+            config = load_config(config)
+        config = normalize_config(config)
+        model_cfg = dict(config.get("model", config))
 
     task = CenterNet(**{k: v for k, v in model_cfg.items()
                         if k in CenterNet.__dataclass_fields__})
     task.init(torch.Generator().manual_seed(seed))
+    if checkpoint is not None:
+        state, _ = load_checkpoint(checkpoint)
+    if torch_ckpt is not None:
+        task.load_torch_checkpoint(torch_ckpt)
+    elif state is not None:
+        weights = dict(state["model"])
+        weights.update(state.get("ema_params") or {})
+        task.model.load_state_dict(weights, strict=True)
     image_size = tuple(model_cfg.get("image_size", (512, 512)))
     mean, std = _extract_norm(model_cfg.get("val_data"))
     return CenterNetPredictor(task, image_size=image_size, mean=mean, std=std,

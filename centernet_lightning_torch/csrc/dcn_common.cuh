@@ -1,6 +1,6 @@
 // Value conversions and 16-byte vector loads and stores shared by the DCN
-// kernels (dcn_sample.cu, dcn_fused.cu). T is float or __nv_bfloat16; the
-// arithmetic around these runs in f32.
+// kernels (dcn_sample.cu, dcn_fused.cu) and the max pool (max_pool.cu). T is
+// float or __nv_bfloat16; the arithmetic around these runs in f32.
 #pragma once
 
 #include <cuda_bf16.h>

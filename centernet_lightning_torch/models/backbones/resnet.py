@@ -6,6 +6,12 @@ convert_resnet_state_dict` of the JAX package maps a state dict exactly.
 
 `forward` takes NCHW and returns the pyramid [C2(s4), C3(s8), C4(s16),
 C5(s32)]; `out_channels` lists their widths and `stride` is 32.
+
+`frozen_stages=k` freezes the stem and layer1..layerk as the JAX package
+does: their BatchNorms run on running statistics in train mode (`train()`
+keeps them in eval), and the map leaving each frozen stage is detached,
+so no gradient reaches them. The optimizer gives them zero updates
+(train/optim.py).
 """
 from __future__ import annotations
 
@@ -84,11 +90,12 @@ class ResNet(nn.Module):
                  stem_space_to_depth: bool = False, remat: bool = False,
                  frozen_stages: int = 0):
         super().__init__()
-        if stem_space_to_depth or remat or frozen_stages:
+        if stem_space_to_depth or remat:
             raise NotImplementedError(
-                "stem_space_to_depth, remat and frozen_stages are ported "
-                "with the training slice (ROADMAP Queue 1 item 7)")
+                "stem_space_to_depth and remat are not ported yet "
+                "(ROADMAP Queue 1 item 7, deferred)")
         self.stage_sizes = tuple(stage_sizes)
+        self.frozen_stages = int(frozen_stages)
         self.width = width
         self.conv1 = nn.Conv2d(in_channels, width, 7, stride=2, padding=3,
                                bias=False)
@@ -105,12 +112,30 @@ class ResNet(nn.Module):
         self.out_channels: List[int] = [
             width * 2 ** i * block_cls.expansion for i in range(4)]
 
+    def stages(self) -> List[List[nn.Module]]:
+        """The modules of the stem, then of each stage: what
+        `frozen_stages=k` freezes is `stages()[:k + 1]`."""
+        return [[self.conv1, self.bn1]] + [
+            [getattr(self, f"layer{s + 1}")] for s in range(len(self.stage_sizes))]
+
+    def train(self, mode: bool = True) -> "ResNet":
+        super().train(mode)
+        if mode and self.frozen_stages > 0:
+            for stage in self.stages()[:self.frozen_stages + 1]:
+                for mod in stage:
+                    mod.eval()
+        return self
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
+        if self.frozen_stages >= 1:
+            x = x.detach()
         features = []
         for stage in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{stage + 1}")(x)
+            if stage + 1 <= self.frozen_stages:
+                x = x.detach()
             features.append(x)
         return features
 

@@ -1,8 +1,9 @@
-"""CenterNet detection task, inference side (port of models/centernet.py).
+"""CenterNet detection task (port of models/centernet.py).
 
 The dataclass keeps the JAX task's fields, so one config builds either;
-`__post_init__` builds the model and its output stride. Losses, targets
-and checkpoint loading come with the training slice and raise until then.
+`__post_init__` builds the model and its output stride. `compute_loss`
+takes the padded CollateDetection targets {boxes (N, K, 4) xywh, labels
+(N, K), mask (N, K)}, as the JAX task does.
 """
 from __future__ import annotations
 
@@ -12,11 +13,11 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..ops import decode as decode_ops
+from ..ops import losses as loss_ops
+from ..ops import targets as target_ops
 from .meta import create_model, init_weights
 
-__all__ = ["CenterNet"]
-
-_TRAINING_SLICE = "the training slice (ROADMAP Queue 1 item 7)"
+__all__ = ["CenterNet", "load_state_file"]
 
 
 @dataclass
@@ -60,9 +61,11 @@ class CenterNet:
     extra_block: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
-        if self.pretrained_backbone:
-            raise NotImplementedError(
-                f"pretrained_backbone is loaded with {_TRAINING_SLICE}")
+        if self.pretrained_backbone is True:
+            raise RuntimeError(
+                "pretrained_backbone=True would download torchvision weights; "
+                "pass a local path to a torch state dict instead "
+                "(pretrained_backbone: /path/to/resnet34.pth)")
         self.image_size = tuple(self.image_size)
         self.model, self.stride = create_model(
             num_classes=self.num_classes,
@@ -77,18 +80,83 @@ class CenterNet:
             extra_block=self.extra_block,
             input_channels=self.input_channels,
         )
+        self._heatmap_loss_fn = loss_ops.get_heatmap_loss(self.heatmap_loss)
+        self._box_loss_fn = loss_ops.get_box_loss(self.box_loss)
+        self._radius_fn = target_ops.get_radius_fn(
+            self.heatmap_target, **(self.heatmap_target_params or {}))
 
     def init(self, generator: torch.Generator) -> None:
         """Draw the model's weights afresh from `generator` (the JAX
-        package's initialisers; see models/meta.py:init_weights)."""
+        package's initialisers; see models/meta.py:init_weights), then load
+        `pretrained_backbone` when it names a file."""
         init_weights(self.model, generator)
+        if self.pretrained_backbone:
+            state = _strip(load_state_file(self.pretrained_backbone),
+                           ("model.backbone.", "backbone.", "module."))
+            # a torchvision file also holds the classifier (fc), and older
+            # ones no BatchNorm batch counters
+            missing, unexpected = self.model.backbone.load_state_dict(
+                state, strict=False)
+            missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+            unexpected = [k for k in unexpected if not k.startswith("fc.")]
+            if missing or unexpected:
+                raise KeyError(f"pretrained_backbone {self.pretrained_backbone}: "
+                               f"missing {missing[:5]}, unexpected {unexpected[:5]}")
 
-    def compute_loss(self, outputs, targets, stride=None):
-        raise NotImplementedError(f"compute_loss is ported with {_TRAINING_SLICE}")
+    def load_torch_checkpoint(self, path_or_state) -> None:
+        """Load a reference Lightning checkpoint (.ckpt / .pth, or its state
+        dict) of the whole model into `self.model`: the port keeps the
+        Lightning key layout, so only the `state_dict` nesting and the
+        `model.` prefix are stripped."""
+        self.model.load_state_dict(_strip(load_state_file(path_or_state),
+                                          ("model.",)), strict=True)
 
-    def load_torch_checkpoint(self, path_or_state, image_size=None):
-        raise NotImplementedError(
-            f"load_torch_checkpoint is ported with {_TRAINING_SLICE}")
+    def compute_loss(self, outputs: Dict[str, torch.Tensor],
+                     targets: Dict[str, torch.Tensor],
+                     stride: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Detection losses over one padded batch, in f32 whatever the
+        forward's dtype: {heatmap: focal loss / max(1, boxes), box_2d: box
+        loss over the S x S centre samples / max(1, samples), total:
+        their weighted sum}.
+
+        outputs: {heatmap (N, H, W, C) logits, box_2d (N, H, W, 4)};
+        targets: {boxes (N, K, 4) xywh input coords, labels, mask (N, K)}.
+        """
+        stride = stride or self.stride
+        heatmap = outputs["heatmap"].float()
+        box_offsets = outputs["box_2d"].float()
+        _, out_h, out_w, _ = heatmap.shape
+        boxes = targets["boxes"].float()
+        labels = targets["labels"].long()
+        mask = targets["mask"].float()
+
+        target_heatmap = target_ops.render_heatmap(
+            boxes, labels, mask, self.num_classes, out_h, out_w, stride,
+            self._radius_fn)
+        heatmap_loss = loss_ops.reduce_loss(
+            self._heatmap_loss_fn(heatmap, target_heatmap), "sum",
+            norm=torch.clamp(mask.sum(), min=1.0))
+
+        idx, sample_mask, target_xyxy = target_ops.center_sample_indices(
+            boxes, mask, out_h, out_w, stride,
+            sample_size=self.center_sampling_size)
+        pred_boxes = decode_ops.gather_and_decode_boxes(
+            box_offsets, idx, box_log=self.box_log,
+            box_multiplier=self.box_multiplier, stride=stride)
+        box_loss = loss_ops.reduce_loss(
+            self._box_loss_fn(pred_boxes, target_xyxy), "sum",
+            weights=sample_mask[..., None],
+            norm=torch.clamp(sample_mask.sum(), min=1.0))
+
+        total = (heatmap_loss * self.heatmap_loss_weight
+                 + box_loss * self.box_loss_weight)
+        return {"heatmap": heatmap_loss, "box_2d": box_loss, "total": total}
+
+    @property
+    def hparams(self) -> Dict[str, Any]:
+        """The dataclass fields, as a checkpoint's hparams.json holds them."""
+        return {name: getattr(self, name)
+                for name in self.__dataclass_fields__}
 
     def decode_detections(
         self,
@@ -126,3 +194,24 @@ class CenterNet:
             normalize_boxes=normalize_boxes, num_detections=num_detections,
             from_logits=True,
         )
+
+
+def load_state_file(path_or_state) -> Dict[str, torch.Tensor]:
+    """A state dict from a torch file (tensors only) or a dict, with a
+    Lightning checkpoint's `state_dict` nesting removed."""
+    obj = (torch.load(path_or_state, map_location="cpu", weights_only=True)
+           if isinstance(path_or_state, (str, bytes)) or hasattr(
+               path_or_state, "__fspath__") else path_or_state)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return obj
+
+
+def _strip(state: Dict[str, torch.Tensor], prefixes) -> Dict[str, torch.Tensor]:
+    """Drop the first of `prefixes` that some key carries, keeping only the
+    keys under it."""
+    for prefix in prefixes:
+        if any(k.startswith(prefix) for k in state):
+            return {k[len(prefix):]: v for k, v in state.items()
+                    if k.startswith(prefix)}
+    return state

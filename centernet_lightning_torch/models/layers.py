@@ -7,6 +7,9 @@ same bytes as the JAX package's NHWC layout.
 
 BatchNorm keeps flax's settings: eps 1e-5, and flax `momentum=0.9` (weight
 of the running value) is torch `momentum=0.1` (weight of the new batch).
+In train mode it also keeps flax's running-variance update, which takes
+the biased batch variance (torch's own `BatchNorm2d` takes the unbiased
+one, n/(n-1) larger).
 """
 from __future__ import annotations
 
@@ -20,15 +23,43 @@ from torch import nn
 from ..ops import dcn as dcn_ops
 from ..ops import dcn_fused, dcn_sample
 
-__all__ = ["ConvNormAct", "DeformableConvBlock", "DeformWeight", "Upsample",
-           "CONV_BLOCKS", "get_conv_block", "batch_norm"]
+__all__ = ["BatchNorm2d", "ConvNormAct", "DeformableConvBlock", "DeformWeight",
+           "Upsample", "CONV_BLOCKS", "get_conv_block", "batch_norm"]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` with flax's train-mode statistics.
+
+    Train mode normalises with the batch mean and biased variance, as
+    torch does, and moves the running statistics toward the same two
+    (flax), in f32 whatever the input's dtype. Eval mode normalises with
+    the running statistics, cast to the input's dtype where they differ
+    (a bf16 forward over f32 buffers).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            stats = (self.running_mean, self.running_var)
+            if stats[0].dtype != x.dtype:
+                stats = tuple(s.to(x.dtype) for s in stats)
+            return F.batch_norm(x, *stats, self.weight, self.bias, False,
+                                0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.float().pow(-2) - self.eps
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.float(), alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvNormAct(nn.Module):

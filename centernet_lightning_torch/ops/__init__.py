@@ -1,4 +1,5 @@
-from . import dcn, dcn_fused, dcn_sample, decode, peak_decode, preprocess
+from . import (boxes, dcn, dcn_fused, dcn_sample, decode, losses, peak_decode,
+               pool, preprocess, targets)
 from .dcn_fused import dcn_fused_conv
 from .dcn_sample import dcn_sample_taps
 from .decode import (
@@ -14,4 +15,5 @@ from .peak_decode import (
     peak_class_scores_cuda,
     peak_class_scores_reference,
 )
+from .pool import max_pool_3x3_s2_auto, max_pool_3x3_s2_reference
 from .preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["TAPS", "dcn_planes", "tap_sample_reference", "fused_reference",
-           "exact_taps", "check_sampling_inputs"]
+           "exact_taps", "check_sampling_inputs", "twin_vjp"]
 
 # (ty, tx) of the 3x3 taps in row-major order, as the JAX block orders them
 TAPS = tuple((ty, tx) for ty in (-1, 0, 1) for tx in (-1, 0, 1))
@@ -88,6 +88,20 @@ def check_sampling_inputs(x: torch.Tensor, planes: Planes, d: int) -> None:
             raise TypeError(f"{name} must be {dtype}, got {p.dtype}")
         if p.device != x.device:
             raise ValueError(f"{name} is on {p.device}, x on {x.device}")
+
+
+def twin_vjp(twin, inputs, wants, grad: torch.Tensor, *static):
+    """The backward of a DCN kernel: recompute its twin with grad enabled
+    and return d(twin)/d(input) . grad for each input whose `wants` is
+    true (None for the others), as the JAX package's custom VJPs do with
+    `jax.vjp` of the XLA twin (ops/pallas_dcn.py:398-406, 417-426)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() if w else t
+                  for t, w in zip(inputs, wants)]
+        wrt = [t for t, w in zip(leaves, wants) if w]
+        got = iter(torch.autograd.grad(twin(*leaves, *static), wrt, grad)
+                   if wrt else ())
+    return tuple(next(got) if w else None for w in wants)
 
 
 def _pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:

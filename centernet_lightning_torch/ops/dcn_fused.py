@@ -5,6 +5,11 @@ its dispatch (port of ops/pallas_dcn.py:dcn_fused_conv).
 the plain twin `ops/dcn.py:fused_reference` on a CPU tensor; there is no
 other fallback. The kernel takes the sampling planes, not the TPU kernel's
 per-term weights (see the note in the source).
+
+It is differentiable in x, fy, fx, wm and the kernel (not in the integer
+floors): the backward recomputes through the twin on either device, as
+the JAX package's custom VJP recomputes through `_xla_fused_ref`. There is
+no backward kernel, as there is none in the JAX package.
 """
 from __future__ import annotations
 
@@ -55,6 +60,31 @@ def dcn_fused_conv(x: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor,
     if kernel.dtype != x.dtype or kernel.device != x.device:
         raise TypeError(f"kernel is {kernel.dtype} on {kernel.device}, "
                         f"x is {x.dtype} on {x.device}")
+    return _FusedConv.apply(x, a0, b0, fy, fx, wm, kernel, d)
+
+
+class _FusedConv(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the twin (CPU). Backward: the twin's
+    gradient, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, a0, b0, fy, fx, wm, kernel, d):
+        ctx.d = d
+        ctx.save_for_backward(x, a0, b0, fy, fx, wm, kernel)
+        return _forward(x, (a0, b0, fy, fx, wm), kernel, d)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = ctx.saved_tensors
+        wants = [ctx.needs_input_grad[i] and i in (0, 3, 4, 5, 6)
+                 for i in range(len(inputs))]
+        return (*dcn_ops.twin_vjp(dcn_ops.fused_reference, inputs, wants,
+                                  grad, ctx.d), None)
+
+
+def _forward(x: torch.Tensor, planes, kernel: torch.Tensor,
+             d: int) -> torch.Tensor:
+    n, h, w, c = x.shape
     if x.device.type == "cpu":
         return dcn_ops.fused_reference(x, *planes, kernel, d)
     if x.device.type != "cuda":

@@ -5,6 +5,11 @@ ops/pallas_dcn.py:dcn_sample_all_taps).
 the plain twin `ops/dcn.py:tap_sample_reference` on a CPU tensor; there is
 no other fallback. The per-tap matrix product that follows stays outside
 the kernel, as it stays outside Pallas in the JAX package.
+
+It is differentiable in x, fy, fx and wm (not in the integer floors): the
+backward recomputes through the twin on either device, as the JAX
+package's custom VJP recomputes through `_xla_all`. There is no backward
+kernel, as there is none in the JAX package.
 """
 from __future__ import annotations
 
@@ -42,8 +47,30 @@ def dcn_sample_taps(x: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor,
     on a CPU tensor it returns `tap_sample_reference`. Returns
     (N, H, W, 9, C) in x's dtype.
     """
-    planes = (a0, b0, fy, fx, wm)
-    dcn_ops.check_sampling_inputs(x, planes, d)
+    dcn_ops.check_sampling_inputs(x, (a0, b0, fy, fx, wm), d)
+    return _SampleTaps.apply(x, a0, b0, fy, fx, wm, d)
+
+
+class _SampleTaps(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the twin (CPU). Backward: the twin's
+    gradient, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, a0, b0, fy, fx, wm, d):
+        ctx.d = d
+        ctx.save_for_backward(x, a0, b0, fy, fx, wm)
+        return _forward(x, (a0, b0, fy, fx, wm), d)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = ctx.saved_tensors
+        wants = [ctx.needs_input_grad[i] and i in (0, 3, 4, 5)
+                 for i in range(len(inputs))]
+        return (*dcn_ops.twin_vjp(dcn_ops.tap_sample_reference, inputs, wants,
+                                  grad, ctx.d), None)
+
+
+def _forward(x: torch.Tensor, planes, d: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return dcn_ops.tap_sample_reference(x, *planes, d)
     if x.device.type != "cuda":

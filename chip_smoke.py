@@ -23,6 +23,10 @@ with its seconds (`phase_s`); any failure exits non-zero:
        aligned. The sampler must be bitwise equal; the fused kernel within
        1e-5 (f32) or 2^-6 (bf16) of the largest |output| (see FUSED_TOL),
        and its launch must refuse a C too wide for its shared memory;
+     - `max_pool_3x3_s2_auto`, bf16 and f32, at the ResNet stem's
+       (64, 256, 256, 64), an odd (3, 37, 53, 24) map (also misaligned) and
+       a 1 x 1 map, with negatives and -inf among the values: bitwise equal
+       to its twin and to `F.max_pool2d(3, 2, 1)`;
   3. main paths, each with every kernel's launch count reset just before
      and read just after:
      - `build_centernet` (ResNet-34, FPN-256, heads 256 x 3, 80 classes,
@@ -43,10 +47,34 @@ with its seconds (`phase_s`); any failure exits non-zero:
      kernels' ms beside their twins', their bounds and a library call's;
      then torch.profiler breakdowns by kernel and the device's busy share,
      for both slices;
-  5. forward parity: the same f32 weights on the card (TF32 off) and on the
+     then the pool kernel beside its 0.200 ms bound, its twin and
+     `F.max_pool2d`, and the DCN backward: for both DCN kernels at the
+     three layer shapes, bf16 and f32, the gradients through the
+     kernels' `autograd.Function`s (kernel forward, twin recompute) must
+     be bitwise equal to autograd through the twins, and the forward and
+     the recompute are timed;
+  5. training main paths, each with the launch counts reset just before
+     `Trainer.fit` and read just after (5 epochs of 4 seeded batches, 512^2,
+     bf16, the configs/centernet.yaml recipe, K = 128 boxes an image about
+     30% valid): ResNet-34 FPN-256 at b32 (b16 if b32 does not fit), whose
+     losses must stay finite, whose every parameter and BatchNorm
+     statistic must move, and whose eval step must launch the peak kernel
+     once; then the DCN model at b32 on `dcn_fast_d1` and `dcn_fused_d1`,
+     3 DCN launches a step, and one step's gradients through the kernels
+     against the same step through the twins (no launch): bitwise on
+     `dcn_fast_d1`; on `dcn_fused_d1`, in bf16 and in f32, the whole
+     gradient within FUSED_GRAD_TOL (relative L2). Each prints
+     train images/s (median epoch after the first), peak memory and a
+     profile;
+  6. forward parity: the same f32 weights on the card (TF32 off) and on the
      CPU at batch 2, 512x512, for ResNet-34 FPN-256 and for the DCN model
      on both DCN engines; the max abs difference of the heatmap and box
-     logits must be within 1e-4 of the logits' largest magnitude.
+     logits must be within 1e-4 of the logits' largest magnitude;
+  7. train-step parity: one f32 SGD step (TF32 off) of each of those three
+     models at b2, 256^2 on the card and on the CPU from the same weights:
+     losses within 1e-4, every updated tensor within 1e-4 of its largest
+     magnitude, the two updates within 2^-5 of each other in L2; two AdamW
+     steps, held by their losses (1e-3).
 
 The closing lines are the card's name and power limit as nvidia-smi
 prints them, then {"kernels": [...]}, then {"ok": true, "device": {...}}.
@@ -88,6 +116,44 @@ DCN_ODD = (3, 37, 53, 24, 40)                    # (N, H, W, C, O)
 # end-to-end times: REPS rounds of ITERS timed calls, the engines taken in
 # turn within a round, so a slow stretch of the machine hits them alike
 E2E_REPS, E2E_ITERS = 5, 10
+# the max pool: the ResNet stem's map at the flagship batch, an odd map and
+# a 1 x 1 one
+POOL_STEM = (64, 256, 256, 64)
+POOL_ODD = (3, 37, 53, 24)
+POOL_ONE = (2, 1, 1, 64)
+# training: the flagship recipe (configs/centernet.yaml: GIoU w5, exp box
+# decode x4, AdamW 2.5e-4, wd 1e-3, norm wd 0, LinearLR warmup then cosine)
+# on seeded batches of K = 128 padded boxes, about 30% valid; 5 epochs of
+# 4 batches, the first epoch a warm-up
+TRAIN_RECIPE = dict(box_loss="GIoULoss", box_log=True, box_multiplier=4.0,
+                    box_loss_weight=5.0, image_size=(512, 512))
+TRAIN_OPT = dict(optimizer="AdamW", lr=2.5e-4, weight_decay=1e-3,
+                 norm_weight_decay=0.0, warmup_epochs=5, warmup_decay=0.01)
+TRAIN_BATCH, TRAIN_BATCHES, TRAIN_EPOCHS = 32, 4, 5
+MAX_BOXES, VALID_BOXES = 128, 0.3
+# DCN model gradients through the fused kernel vs through its twin: the L2
+# norm of the difference over all parameters as a share of the gradient's
+# norm. The kernel's outputs differ from the twin's by about 1e-6 (f32) or
+# an ulp (bf16); downstream, the ReLUs whose inputs lie that close to 0
+# flip (a few hundred of some 1e8 elements in f32), and each flip moves
+# the gradient at one element, so the whole gradient moves by about
+# sqrt(flips / elements): on an H100, 1.6e-3 in f32 and 0.068 in bf16. The
+# twins' own gradients under an input change of one rounding (2^-23 in f32,
+# 2^-8 in bf16) are printed beside them as the model's sensitivity
+FUSED_GRAD_TOL = {torch.float32: 1e-2, torch.bfloat16: 2.0 ** -3}
+INPUT_ROUNDING = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -8}
+# one f32 step on the card (TF32 off) vs the CPU, at b2 256^2: losses and
+# each updated tensor, as a share of its largest magnitude (convolution and
+# gradient sums in another order; 1e-4 as for the forward)
+TRAIN_PARITY_SIZE = 256
+# a small SGD step, so each updated tensor's difference stays a matter of
+# the step's direction, which the updates' L2 difference holds apart: ReLUs
+# flipped by rounding move the gradient by sqrt(flips / elements), about
+# 1e-3 in f32 (as for the fused kernel's gradients)
+SGD_PARITY_LR = 1e-4
+SGD_UPDATE_TOL = 2.0 ** -5
+ADAMW_LOSS_RTOL = 1e-3   # the second AdamW step's loss: Adam moves every
+#                          weight by about lr whatever its gradient's size
 
 
 def emit(obj):
@@ -287,32 +353,34 @@ def dcn_blocks(model):
 
 
 @torch.no_grad()
-def draw_offset_weights(pred, images, gen, offset_std=1.5, mask_std=1.0):
+def draw_offset_weights(model, x, gen, offset_std=1.5, mask_std=1.0):
     """Seeded weights for every DCN offset and mask convolution (zero in a
     seeded model, which would make every offset 0 and the sampling a plain
-    3x3 gather), scaled twice on `images` so each layer's offsets have a
-    std near `offset_std` (many pass +-1) and its mask logits near
-    `mask_std` (the sigmoid stays smooth: logits of thousands would make it
-    a step, and the model's output a near-discontinuous function of its
-    input)."""
-    blocks = dcn_blocks(pred.model)
+    3x3 gather), scaled twice on the preprocessed images `x` so each
+    layer's offsets have a std near `offset_std` (many pass +-1) and its
+    mask logits near `mask_std` (the sigmoid stays smooth: logits of
+    thousands would make it a step, and the model's output a
+    near-discontinuous function of its input)."""
+    blocks = dcn_blocks(model)
     convs = [(b.conv_offset, offset_std) for b in blocks]
     convs += [(b.conv_mask, mask_std) for b in blocks if b.conv_mask is not None]
     for conv, _ in convs:
         conv.weight.normal_(0.0, 1.0, generator=gen)
         conv.bias.normal_(0.0, 0.3, generator=gen)
-    x = pred.prepare_images(images)
+    training = model.training
+    model.eval()
     for _ in range(2):
         stds = {}
         hooks = [conv.register_forward_hook(
             lambda m, _i, out: stds.__setitem__(m, out.float().std().item()))
             for conv, _ in convs]
-        pred.model(x)
+        model(x)
         for h in hooks:
             h.remove()
         for conv, target in convs:
             conv.weight.mul_(target / stds[conv])
             conv.bias.mul_(target / stds[conv])
+    model.train(training)
 
 
 @contextlib.contextmanager
@@ -370,19 +438,220 @@ def forward_parity(cpu, gpu, images):
     return parity
 
 
+# ---- the max pool -----------------------------------------------------
+
+def pool_input(shape, dtype, gen, dev="cuda", misaligned=False):
+    """A seeded (N, H, W, C) map with negatives and every 7th value -inf."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    x.view(-1)[::7] = float("-inf")
+    if misaligned:                     # contiguous, but not 16-byte aligned
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        out = flat[1:].view(shape)
+        out.copy_(x)
+        return out
+    return x.to(dtype)
+
+
+def pool_library(x):
+    """F.max_pool2d on the NHWC map's channels_last NCHW view."""
+    return torch.nn.functional.max_pool2d(
+        x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def pool_bound(n, h, w, c, elt):
+    """Bytes: the input read once, the output written once. Operations: 8
+    maxes per output value (f32 rate; a max is one compare)."""
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    moved = n * h * w * c * elt + n * ho * wo * c * elt
+    return bound(moved, n * ho * wo * c * 8 / H100_F32_OPS_PER_S * 1e3)
+
+
+# ---- the DCN backward --------------------------------------------------
+
+def dcn_grads(fn, x, planes, kern, grad):
+    """Gradients of fn's output . grad w.r.t. x, fy, fx, wm (and the
+    kernel when `kern` is given), from fresh leaves."""
+    a0, b0, *floats = planes
+    leaves = [x.detach().clone().requires_grad_()]
+    leaves += [p.detach().clone().requires_grad_() for p in floats]
+    extra = [kern.detach().clone().requires_grad_()] if kern is not None else []
+    out = fn(leaves[0], a0, b0, *leaves[1:], *extra, 1)
+    return out, torch.autograd.grad(out, leaves + extra, grad)
+
+
+# ---- training ------------------------------------------------------------
+
+def detection_batches(n_batches, batch, size, num_classes, dev, seed):
+    """CollateDetection batches made on `dev` from a seed: uint8 images,
+    MAX_BOXES padded xywh boxes an image inside it, about VALID_BOXES of
+    them valid."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n_batches):
+        wh = torch.rand((batch, MAX_BOXES, 2), generator=gen, device=dev) \
+            * (size / 2 - 8) + 8
+        xy = torch.rand((batch, MAX_BOXES, 2), generator=gen, device=dev) * (size - wh)
+        out.append({
+            "image": torch.randint(0, 256, (batch, size, size, 3), generator=gen,
+                                   device=dev, dtype=torch.uint8),
+            "boxes": torch.cat([xy, wh], -1),
+            "labels": torch.randint(0, num_classes, (batch, MAX_BOXES),
+                                    generator=gen, device=dev, dtype=torch.int32),
+            "mask": (torch.rand((batch, MAX_BOXES), generator=gen, device=dev)
+                     < VALID_BOXES).float()})
+    return out
+
+
+class EpochClock:
+    """A loader over fixed batches that, as each epoch starts, waits for the
+    card and records the time and the trainer's last losses; `tick()` once
+    more after fit closes the last epoch."""
+
+    def __init__(self, batches):
+        self.batches, self.times, self.losses = batches, [], []
+        self.trainer = None
+
+    def __len__(self):
+        return len(self.batches)
+
+    def tick(self):
+        if self.batches[0]["image"].is_cuda:
+            torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        last = self.trainer.last_losses if self.trainer is not None else None
+        if last is not None:
+            self.losses.append({k: float(v) for k, v in last.items()})
+
+    def __iter__(self):
+        self.tick()
+        return iter(self.batches)
+
+    def step_ms(self):
+        """Median ms a step over the epochs after the first (warm-up)."""
+        epochs = np.diff(self.times)[1:]
+        return float(np.median(epochs)) / len(self.batches) * 1e3
+
+
+class KeepGrads:
+    """An optimizer for `make_train_step` that keeps the gradients and
+    changes nothing: one step's gradients, through the real train step."""
+    grads = None
+
+    def update(self, params, grads):
+        self.grads = grads
+
+
+def step_grads(task, model, batch, compute_dtype):
+    """(losses, gradients) of one train step of `model` on `batch`; the
+    model's weights and BatchNorm statistics are left as they were."""
+    from centernet_lightning_torch.train import TrainState, make_train_step
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    state = TrainState(model=model, tx=KeepGrads())
+    state, losses = make_train_step(task, compute_dtype=compute_dtype)(state, batch)
+    model.load_state_dict(saved)
+    return {k: v.detach() for k, v in losses.items()}, state.tx.grads
+
+
+def fit_path(task, batches, epochs, opt_cfg, dev, prepare=None):
+    """A bf16 Trainer for `epochs` epochs over `batches` on `dev`;
+    `prepare` (model -> None) runs on the freshly drawn weights. Returns
+    the trainer, its clock and the state dict before the run."""
+    from centernet_lightning_torch.train import Trainer
+
+    clock = EpochClock(batches)
+    trainer = Trainer(task, train_loader=clock, max_epochs=epochs,
+                      optimizer_config=opt_cfg, image_size=(SIZE, SIZE),
+                      precision="bf16", log_every=10 ** 9, device=dev,
+                      logger_config={"backends": []})
+    clock.trainer = trainer
+    if prepare is not None:
+        prepare(trainer.state.model)
+    before = {k: v.clone() for k, v in trainer.state.model.state_dict().items()}
+    return trainer, clock, before
+
+
+def changed(model, before):
+    """How many parameters, and how many BatchNorm running statistics, moved."""
+    now = model.state_dict()
+    names = {k for k, _ in model.named_parameters()}
+    moved = {k for k, v in now.items() if v.is_floating_point()
+             and not torch.equal(v, before[k])}
+    stats = [k for k in now if k.endswith(("running_mean", "running_var"))]
+    return {"params_changed": len(moved & names), "params": len(names),
+            "bn_stats_changed": len(moved & set(stats)), "bn_stats": len(stats)}
+
+
+def sgd_step_parity(cfg, batch, seed, prepare=None, dev="cuda"):
+    """One f32 SGD step and two AdamW steps of the same model on the card
+    (TF32 off) and on the CPU, from the same weights on the same batch:
+    the losses, each updated tensor's max abs difference beside its
+    largest magnitude and its largest change in the step, and the L2 norm
+    of the difference of the two updates as a share of the CPU's."""
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch.train import (TrainState, make_optimizer,
+                                                 make_train_step)
+
+    preds = {"cpu": build_centernet(cfg, seed=seed, device="cpu"),
+             "card": build_centernet(cfg, seed=seed, device=dev)}
+    perturb_bn(preds["cpu"].model, seed + 1)
+    preds["card"].model.load_state_dict(preds["cpu"].model.state_dict())
+    if prepare is not None:
+        prepare(preds["card"])
+    start = {k: v.cpu() for k, v in preds["card"].model.state_dict().items()}
+    result = {}
+    for rule, steps, lr in (("SGD", 1, SGD_PARITY_LR), ("AdamW", 2, 1e-4)):
+        opt = dict(optimizer=rule, lr=lr, weight_decay=1e-4, warmup_epochs=0,
+                   max_epochs=1, steps_per_epoch=steps)
+        after, losses = {}, {}
+        for where, pred in preds.items():
+            pred.model.load_state_dict(start)
+            state = TrainState(model=pred.model,
+                               tx=make_optimizer(pred.model, **opt))
+            step = make_train_step(pred.task)
+            b = {k: v.to(pred.device) for k, v in batch.items()}
+            losses[where] = []
+            for _ in range(steps):
+                state, out = step(state, b)
+                losses[where].append({k: float(v) for k, v in out.items()})
+            after[where] = {k: v.cpu() for k, v in pred.model.state_dict().items()}
+        worst = {"rel_to_max": 0.0, "rel_to_update": 0.0, "tensor": None}
+        diff_sq = update_sq = 0.0
+        for key, ref in after["cpu"].items():
+            if not ref.is_floating_point():
+                continue
+            diff_sq += ((after["card"][key] - ref) ** 2).sum().item()
+            update_sq += ((ref - start[key]) ** 2).sum().item()
+            diff = (after["card"][key] - ref).abs().max().item()
+            rel = diff / max(ref.abs().max().item(), 1e-30)
+            upd = (ref - start[key]).abs().max().item()
+            if rel > worst["rel_to_max"]:
+                worst = {"rel_to_max": rel, "rel_to_update": diff / max(upd, 1e-30),
+                         "tensor": key}
+        loss_rel = max(abs(g[k] - r[k]) / max(abs(r[k]), 1e-30)
+                       for g, r in zip(losses["card"], losses["cpu"]) for k in r)
+        result[rule] = {"steps": steps, "lr": lr, "losses": losses,
+                        "loss_max_rel_diff": loss_rel, "worst_tensor": worst,
+                        "update_rel_l2_diff": (diff_sq / max(update_sq, 1e-30)) ** 0.5}
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
 
     from centernet_lightning_torch import build_centernet
-    from centernet_lightning_torch.ops import _build, dcn, dcn_fused, dcn_sample
+    from centernet_lightning_torch.models.centernet import CenterNet
+    from centernet_lightning_torch.ops import (_build, dcn, dcn_fused,
+                                               dcn_sample, pool)
+    from centernet_lightning_torch.ops.preprocess import preprocess
     from centernet_lightning_torch.ops import decode as decode_ops
     from centernet_lightning_torch.ops import peak_decode
     from centernet_lightning_torch.utils.dcn_audit import audit_dcn_offsets
 
     kernels = [peak_decode.peak_class_scores_cuda, dcn_sample.dcn_sample_taps,
-               dcn_fused.dcn_fused_conv]
+               dcn_fused.dcn_fused_conv, pool.max_pool_3x3_s2_auto]
 
     def reset_launches():
         for k in kernels:
@@ -491,7 +760,33 @@ def main() -> int:
                                  f"shared memory")
     del x, planes, kern
     torch.cuda.empty_cache()
+    # the max pool: bitwise equal to its twin and to F.max_pool2d
+    pool_cases = [(shape, dtype, False) for shape in (POOL_STEM, POOL_ODD, POOL_ONE)
+                  for dtype in (torch.bfloat16, torch.float32)]
+    pool_cases += [(POOL_ODD, dtype, True) for dtype in (torch.bfloat16, torch.float32)]
+    pool_err = 0.0
+    for shape, dtype, misaligned in pool_cases:
+        x = pool_input(shape, dtype, gen, misaligned=misaligned)
+        y = pool.max_pool_3x3_s2_auto(x)
+        ref = pool.max_pool_3x3_s2_reference(x)
+        lib = pool_library(x)
+        torch.cuda.synchronize()
+        same = torch.equal(y, ref) and torch.equal(y, lib)
+        err = (y.float() - ref.float()).nan_to_num(0.0).abs().max().item()
+        pool_err = max(pool_err, err)
+        emit({"phase": "kernel_vs_plain", "kernel": "max_pool_3x3_s2",
+              "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+              "misaligned": misaligned, "bitwise_equal_twin": torch.equal(y, ref),
+              "bitwise_equal_max_pool2d": torch.equal(y, lib),
+              "neg_inf_outputs": int(torch.isneginf(y).sum().item()),
+              "max_abs_err": err})
+        if not same:
+            raise AssertionError(f"max pool kernel differs: {shape} {dtype} "
+                                 f"misaligned={misaligned}")
+    del x, y, ref, lib
+    torch.cuda.empty_cache()
     emit({"phase": "kernel_vs_plain_done", "peak_cases": 4 * len(cases),
+          "pool_cases": len(pool_cases),
           "dcn_cases": n_dcn_ok, "dcn_sample_max_abs_err": dcn_err["dcn_sample"],
           "dcn_fused_max_rel_err": fused_rel,
           "phase_s": time.perf_counter() - t_phase})
@@ -550,7 +845,7 @@ def main() -> int:
         raise AssertionError("main path output check failed")
     if launches["peak_class_scores_cuda"] < 1:
         raise AssertionError(f"the peak kernel never launched: {launches}")
-    path_launches = {"peak_class_scores_cuda": launches["peak_class_scores_cuda"]}
+    path_launches = dict(launches)
 
     # ---- 3b. main paths: ResNet-18 FPN-128 DCNv2 --------------------------
     t_phase = time.perf_counter()
@@ -561,7 +856,8 @@ def main() -> int:
                                    ("dcn_fused_d1", "dcn_fused_conv")):
         dpred = build_centernet(dcn_config(conv_type), seed=0)
         if not dcn_preds:
-            draw_offset_weights(dpred, dcn_images[:4], wgen)
+            draw_offset_weights(dpred.model, dpred.prepare_images(dcn_images[:4]),
+                                wgen)
         else:                       # the same weights on the other engine
             dpred.model.load_state_dict(
                 next(iter(dcn_preds.values())).model.state_dict())
@@ -613,6 +909,7 @@ def main() -> int:
             if not (p["finite"] and p["max_abs_diff"] <= p["tolerance"]):
                 raise AssertionError(f"{conv_type} {key}: kernels vs twins {p}")
         path_launches[kernel_name] = launches[kernel_name]
+        path_launches["max_pool_3x3_s2_auto"] += launches["max_pool_3x3_s2_auto"]
         t_phase = time.perf_counter()
 
     # ---- 4a. times: ResNet-34 FPN-256 ---------------------------------------
@@ -731,7 +1028,239 @@ def main() -> int:
     del dev_images, fast, dcn_preds
     torch.cuda.empty_cache()
 
-    # ---- 5. forward parity on the card ---------------------------------
+    # ---- 4c. times: the max pool at the stem's shape ----------------------
+    t_phase = time.perf_counter()
+    x = pool_input(POOL_STEM, torch.bfloat16, gen)
+    with torch.inference_mode():
+        pool_t = {
+            "kernel_ms": cuda_ms(lambda: pool.max_pool_3x3_s2_auto(x), iters=50),
+            "plain_ms": cuda_ms(lambda: pool.max_pool_3x3_s2_reference(x), iters=10),
+            "library_ms": cuda_ms(lambda: pool_library(x), iters=50),
+        }
+    pool_b = pool_bound(*POOL_STEM, 2)
+    emit({"phase": "pool_times", "shape": list(POOL_STEM), "dtype": "bfloat16",
+          **pool_t, **pool_b,
+          "library_note": "F.max_pool2d(3, 2, 1) on the channels_last view",
+          "phase_s": time.perf_counter() - t_phase})
+    del x
+
+    # ---- 4d. the DCN backward: gradients through the Functions -----------
+    # (kernel forward, twin recompute) against autograd through the twins,
+    # with the same upstream gradient: bitwise, since the recompute is the
+    # twin; then the forward kernel's and the recompute's times
+    t_phase = time.perf_counter()
+    recompute_ms = {}
+    n_back = 0
+    for kname, fn, twin in (("dcn_sample", dcn_sample.dcn_sample_taps,
+                             dcn.tap_sample_reference),
+                            ("dcn_fused", dcn_fused.dcn_fused_conv,
+                             dcn.fused_reference)):
+        for (h, w) in DCN_LAYERS:
+            for dtype in (torch.bfloat16, torch.float32):
+                shape = (DCN_BATCH, h, w, DCN_WIDTH, DCN_WIDTH)
+                x, planes, kern = dcn_inputs(shape, dtype, 1, 2, "random", gen)
+                k = kern if kname == "dcn_fused" else None
+                out_shape = ((DCN_BATCH, h, w, DCN_WIDTH) if k is not None
+                             else (DCN_BATCH, h, w, len(dcn.TAPS), DCN_WIDTH))
+                grad = torch.randn(out_shape, generator=gen, device="cuda").to(dtype)
+                out, got = dcn_grads(fn, x, planes, k, grad)
+                _, ref = dcn_grads(twin, x, planes, k, grad)
+                same = all(torch.equal(a, b) for a, b in zip(got, ref))
+                leaves = [x.detach().clone().requires_grad_()] + [
+                    p.detach().clone().requires_grad_() for p in planes[2:]]
+                extra = [kern.detach().clone().requires_grad_()] if k is not None else []
+                out = fn(leaves[0], *planes[:2], *leaves[1:], *extra, 1)
+                t = {"forward_ms": cuda_ms(lambda: fn(
+                         x, *planes, *([kern] if k is not None else []), 1), iters=10),
+                     "recompute_ms": cuda_ms(lambda: torch.autograd.grad(
+                         out, leaves + extra, grad, retain_graph=True), iters=3)}
+                dname = str(dtype).replace("torch.", "")
+                recompute_ms[(kname, h, dname)] = t["recompute_ms"]
+                emit({"phase": "dcn_backward", "kernel": kname, "shape": list(shape),
+                      "dtype": dname, "d": 1, "grads_bitwise_equal_twin": same,
+                      "grad_max_abs": [g.float().abs().max().item() for g in got], **t})
+                if not same:
+                    raise AssertionError(f"{kname} backward differs from the twin's "
+                                         f"autograd: {shape} {dtype}")
+                n_back += 1
+                del x, planes, kern, grad, out, got, ref, leaves, extra
+                torch.cuda.empty_cache()
+    emit({"phase": "dcn_backward_done", "cases": n_back,
+          "recompute_ms_per_step_bf16": {
+              kname: sum(recompute_ms[(kname, h, "bfloat16")] for h, _ in DCN_LAYERS)
+              for kname in ("dcn_sample", "dcn_fused")},
+          "phase_s": time.perf_counter() - t_phase})
+
+    # ---- 5a. training main path: ResNet-34 FPN-256 ------------------------
+    t_phase = time.perf_counter()
+    for batch_size in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            batches = detection_batches(TRAIN_BATCHES, batch_size, SIZE, 80, "cuda", 5)
+            task = CenterNet(num_classes=80, backbone="resnet34", neck="FPN",
+                             neck_config={"out_channels": 256},
+                             head_config={"width": 256, "depth": 3}, **TRAIN_RECIPE)
+            trainer, clock, before = fit_path(task, batches, TRAIN_EPOCHS, TRAIN_OPT,
+                                              "cuda")
+            reset_launches()
+            state = trainer.fit()
+            clock.tick()
+            launches = read_launches()
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            emit({"phase": "train_main_path", "batch": batch_size,
+                  "out_of_memory": str(err)[:200]})
+            trainer = clock = state = batches = None
+            torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = changed(state.model, before)
+    finite = all(np.isfinite(v) for losses in clock.losses for v in losses.values())
+    step_ms = clock.step_ms()
+    reset_launches()
+    eval_dets = trainer.eval_step(state, {"image": batches[0]["image"]})
+    eval_launches = read_launches()
+    eval_ok = (tuple(eval_dets["scores"].shape) == (batch_size, 100)
+               and bool(torch.isfinite(eval_dets["scores"]).all()))
+    emit({"phase": "train_main_path", "model": "resnet34_fpn256", "batch": batch_size,
+          "image_size": SIZE, "precision": "bf16", "optimizer": TRAIN_OPT,
+          "steps": state.step, "losses_at_epoch_ends": clock.losses,
+          "finite": finite, **moved, "launches": launches,
+          "eval_step_launches": eval_launches, "eval_ok": eval_ok,
+          "step_ms_median": step_ms, "train_images_per_s": batch_size / step_ms * 1e3,
+          "epoch_s": np.diff(clock.times).tolist(), "max_memory_GB": peak_gb,
+          "phase_s": time.perf_counter() - t_phase})
+    if not (finite and eval_ok and moved["params_changed"] == moved["params"]
+            and moved["bn_stats_changed"] == moved["bn_stats"]):
+        raise AssertionError("training main path check failed")
+    if eval_launches["peak_class_scores_cuda"] != 1:
+        raise AssertionError(f"the peak kernel did not launch once in the eval "
+                             f"step: {eval_launches}")
+    t_phase = time.perf_counter()
+    emit({"phase": "train_profile", "model": "resnet34_fpn256", "batch": batch_size,
+          **device_breakdown(lambda: trainer.train_step(state, batches[0]),
+                             iters=2, wall_ms=step_ms),
+          "phase_s": time.perf_counter() - t_phase})
+    del trainer, clock, state, batches, task, eval_dets
+    torch.cuda.empty_cache()
+
+    # ---- 5b. training main path: the DCN model on both engines -----------
+    t_phase = time.perf_counter()
+    dcn_batches = detection_batches(TRAIN_BATCHES, DCN_BATCH, SIZE, 80, "cuda", 6)
+    dcn_start = None
+    for conv_type, kernel in (("dcn_fast_d1", dcn_sample.dcn_sample_taps),
+                              ("dcn_fused_d1", dcn_fused.dcn_fused_conv)):
+        torch.cuda.reset_peak_memory_stats()
+        task = CenterNet(num_classes=80, backbone="resnet18", neck="FPN",
+                         neck_config={"out_channels": DCN_WIDTH, "conv_type": conv_type},
+                         head_config={"width": DCN_WIDTH, "depth": 2}, **TRAIN_RECIPE)
+
+        def prepare(model):
+            if dcn_start is None:    # the same weights on both engines
+                draw_offset_weights(model, preprocess(dcn_batches[0]["image"][:4]),
+                                    torch.Generator(device="cuda").manual_seed(7))
+            else:
+                model.load_state_dict(dcn_start)
+
+        trainer, clock, before = fit_path(task, dcn_batches, TRAIN_EPOCHS, TRAIN_OPT,
+                                          "cuda", prepare=prepare)
+        dcn_start = dcn_start or before
+        reset_launches()
+        state = trainer.fit()
+        clock.tick()
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        moved = changed(state.model, before)
+        finite = all(np.isfinite(v) for losses in clock.losses for v in losses.values())
+        step_ms = clock.step_ms()
+        # one step's gradients through the kernels and through the twins,
+        # from the same weights on the same batch: bf16, and for the fused
+        # kernel f32 too (TF32 off); then the twins' on an input changed
+        # by one rounding. Deterministic algorithms: cuDNN's default f32
+        # backward and the index backward's atomics would otherwise part
+        # two runs of the same step
+        model = state.model
+        vs_twins = {}
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for dtype in ((torch.bfloat16, torch.float32) if conv_type == "dcn_fused_d1"
+                      else (torch.bfloat16,)):
+            compute = "bfloat16" if dtype == torch.bfloat16 else None
+            torch.backends.cudnn.allow_tf32 = dtype == torch.bfloat16
+            torch.backends.cuda.matmul.allow_tf32 = False
+            batch = dict(dcn_batches[0], image=preprocess(dcn_batches[0]["image"]))
+            noise = torch.randn(batch["image"].shape, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(11))
+            moved_batch = dict(batch, image=batch["image"]
+                               * (1 + INPUT_ROUNDING[dtype] * noise))
+            reset_launches()
+            k_losses, k_grads = step_grads(task, model, batch, compute)
+            step_launches = read_launches()
+            with dcn_twins(model, kernels):
+                t_losses, t_grads = step_grads(task, model, batch, compute)
+                _, m_grads = step_grads(task, model, moved_batch, compute)
+
+            def rel_l2(a, b):
+                diff_sq = sum(((a[n].float() - g.float()) ** 2).sum().item()
+                              for n, g in b.items())
+                norm_sq = sum((g.float() ** 2).sum().item() for g in b.values())
+                return (diff_sq / max(norm_sq, 1e-30)) ** 0.5
+
+            vs_twins[str(dtype).replace("torch.", "")] = {
+                "bitwise_equal": all(torch.equal(k_grads[n], g)
+                                     for n, g in t_grads.items()),
+                "losses_equal": all(torch.equal(k_losses[n], v)
+                                    for n, v in t_losses.items()),
+                "rel_l2_diff": rel_l2(k_grads, t_grads),
+                "twins_input_rounding_rel_l2_diff": rel_l2(m_grads, t_grads),
+                "worst_tensor_max_rel_diff": max(
+                    ((k_grads[n].float() - g.float()).abs().max().item()
+                     / max(g.float().abs().max().item(), 1e-30), n)
+                    for n, g in t_grads.items()),
+                "tolerance": (0.0 if conv_type == "dcn_fast_d1"
+                              else FUSED_GRAD_TOL[dtype]),
+                "step_launches": step_launches}
+            del k_grads, t_grads, m_grads, batch, moved_batch, noise
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+        n_steps = state.step
+        emit({"phase": "dcn_train_path", "conv_type": conv_type, "batch": DCN_BATCH,
+              "image_size": SIZE, "precision": "bf16", "steps": n_steps,
+              "losses_at_epoch_ends": clock.losses, "finite": finite, **moved,
+              "launches": launches, "grads_vs_twins": vs_twins,
+              "step_ms_median": step_ms, "train_images_per_s": DCN_BATCH / step_ms * 1e3,
+              "recompute_share_estimate": sum(
+                  recompute_ms[("dcn_sample" if conv_type == "dcn_fast_d1"
+                                else "dcn_fused", h, "bfloat16")]
+                  for h, _ in DCN_LAYERS) / step_ms,
+              "max_memory_GB": peak_gb, "phase_s": time.perf_counter() - t_phase})
+        if not (finite and moved["params_changed"] == moved["params"]
+                and moved["bn_stats_changed"] == moved["bn_stats"]):
+            raise AssertionError(f"{conv_type} training check failed")
+        if launches[kernel.__name__] != 3 * n_steps or any(
+                v["step_launches"][kernel.__name__] != 3 for v in vs_twins.values()):
+            raise AssertionError(f"{conv_type}: expected 3 {kernel.__name__} launches "
+                                 f"a step: {launches} over {n_steps} steps, "
+                                 f"{vs_twins}")
+        for v in vs_twins.values():
+            if conv_type == "dcn_fast_d1" and not (v["bitwise_equal"]
+                                                   and v["losses_equal"]):
+                raise AssertionError(f"dcn_fast_d1 gradients through the kernel "
+                                     f"differ from the twins': {v}")
+            if v["rel_l2_diff"] > v["tolerance"]:
+                raise AssertionError(f"{conv_type} gradients vs twins: {v}")
+        t_phase = time.perf_counter()
+        emit({"phase": "dcn_train_profile", "conv_type": conv_type,
+              **device_breakdown(lambda: trainer.train_step(state, dcn_batches[0]),
+                                 iters=2, wall_ms=step_ms),
+              "phase_s": time.perf_counter() - t_phase})
+        del trainer, clock, state, model, task
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+    del dcn_batches, dcn_start
+    torch.cuda.empty_cache()
+
+    # ---- 6. forward parity on the card ---------------------------------
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -760,8 +1289,8 @@ def main() -> int:
             perturb_bn(cpu.model, 2)
             gpu.model.load_state_dict(cpu.model.state_dict())
             # offsets drawn after the BN change, on the model compared
-            draw_offset_weights(gpu, small, torch.Generator(
-                device="cuda").manual_seed(4))
+            draw_offset_weights(gpu.model, gpu.prepare_images(small),
+                                torch.Generator(device="cuda").manual_seed(4))
             parity_state = gpu.model.state_dict()
         gpu.model.load_state_dict(parity_state)
         cpu.model.load_state_dict(parity_state)
@@ -777,6 +1306,36 @@ def main() -> int:
                 raise AssertionError(f"{conv_type} forward parity failed for "
                                      f"{key}: {p}")
         del cpu, gpu
+
+    # ---- 7. train-step parity on the card (TF32 still off) -----------------
+    small_batch = detection_batches(1, 2, TRAIN_PARITY_SIZE, 80, "cpu", 9)[0]
+    for name, pcfg, prepare in (
+            ("resnet34_fpn256", f32_cfg, None),
+            ("resnet18_fpn128_dcn_fast_d1", dcn_config("dcn_fast_d1", dtype=None),
+             lambda p: draw_offset_weights(
+                 p.model, preprocess(small_batch["image"].cuda()),
+                 torch.Generator(device="cuda").manual_seed(10))),
+            ("resnet18_fpn128_dcn_fused_d1", dcn_config("dcn_fused_d1", dtype=None),
+             lambda p: draw_offset_weights(
+                 p.model, preprocess(small_batch["image"].cuda()),
+                 torch.Generator(device="cuda").manual_seed(10)))):
+        t_phase = time.perf_counter()
+        pcfg = {"model": dict(pcfg["model"], **{k: v for k, v in TRAIN_RECIPE.items()
+                                                 if k != "image_size"})}
+        res = sgd_step_parity(pcfg, small_batch, seed=1, prepare=prepare)
+        emit({"phase": "train_parity", "model": name, "batch": 2,
+              "image_size": TRAIN_PARITY_SIZE, "dtype": "float32", "tf32": False,
+              **res, "tolerance": {"SGD_loss_rel": FORWARD_RTOL,
+                                   "SGD_tensor_rel_to_max": FORWARD_RTOL,
+                                   "SGD_update_rel_l2": SGD_UPDATE_TOL,
+                                   "AdamW_loss_rel": ADAMW_LOSS_RTOL},
+              "phase_s": time.perf_counter() - t_phase})
+        if not (res["SGD"]["loss_max_rel_diff"] <= FORWARD_RTOL
+                and res["SGD"]["worst_tensor"]["rel_to_max"] <= FORWARD_RTOL
+                and res["SGD"]["update_rel_l2_diff"] <= SGD_UPDATE_TOL
+                and res["AdamW"]["loss_max_rel_diff"] <= ADAMW_LOSS_RTOL):
+            raise AssertionError(f"{name}: train step card vs CPU out of "
+                                 f"tolerance: {res['SGD']['worst_tensor']}")
 
     # ---- closing lines --------------------------------------------------
     s4 = kernel_times[-1]
@@ -804,6 +1363,12 @@ def main() -> int:
          "bound_ms": s4["fused_bound"]["bound_ms"],
          "bound_by": s4["fused_bound"]["bound_by"],
          "library_ms": None},
+        {"name": "max_pool_3x3_s2", "route": "cuda",
+         "source": pool.KERNEL_SOURCE, "replaces": pool.REPLACES,
+         "launches": path_launches["max_pool_3x3_s2_auto"],
+         "max_abs_err": pool_err, "ms": pool_t["kernel_ms"],
+         "plain_ms": pool_t["plain_ms"], "bound_ms": pool_b["bound_ms"],
+         "bound_by": pool_b["bound_by"], "library_ms": pool_t["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

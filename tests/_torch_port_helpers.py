@@ -110,3 +110,148 @@ def assert_detections_match(ref, got, rtol=1e-6, atol=1e-6, min_distinct=1):
         np.testing.assert_allclose(np.sort(gs[n][~apart]),
                                    np.sort(row[~apart]), rtol=rtol, atol=atol)
     assert distinct >= min_distinct, "comparison had no untied entries"
+
+
+def random_flax_variables(task, rng, image_size=(32, 32)):
+    """Seeded variables in the shapes of a JAX task's model, traced rather
+    than run: convolution kernels he-normal over their fan-in, biases
+    small, BatchNorm near the identity with non-trivial statistics, and
+    the heatmap head's bias at the prior. Numpy leaves."""
+    shapes = jax.eval_shape(lambda key: task.init(key, image_size=image_size),
+                            jax.random.PRNGKey(0))
+
+    def draw(path, s):
+        keys = [getattr(p, "key", "") for p in path]
+        name = keys[-1]
+        if name == "kernel":
+            fan_in = int(np.prod(s.shape[:-1]))
+            return rng.normal(scale=np.sqrt(2.0 / fan_in), size=s.shape)
+        if name in ("scale", "var"):
+            return rng.uniform(0.8, 1.2, s.shape)
+        if name == "bias" and "heads_heatmap" in keys and "out_conv" in keys:
+            return np.full(s.shape, -2.19)
+        return rng.normal(0.0, 0.05, s.shape)
+
+    variables = jax.tree_util.tree_map_with_path(draw, shapes)
+    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), variables)
+
+
+TRAIN_CFG = dict(num_classes=5, backbone="resnet18", neck="FPN",
+                 neck_config={"out_channels": 32},
+                 head_config={"width": 32, "depth": 1}, box_loss="GIoULoss",
+                 box_log=True, box_multiplier=4.0, box_loss_weight=5.0,
+                 image_size=(64, 64))
+# Learning rates: the two frameworks' f32 gradients differ by rounding,
+# and where an activation sits within that rounding of a ReLU's kink, or
+# a gradient element within it of zero (Adam's step is then about +-lr
+# either way), one step's updates differ; the trajectories then drift
+# apart in proportion to the learning rate. These rates keep three steps'
+# drift inside the tolerances (test_torch_port_train.py); the update
+# rules themselves are held to optax at rtol 1e-6 (test_torch_port_optim.py).
+TRAIN_OPT = {"SGD": dict(optimizer="SGD", lr=1e-4),
+             "AdamW": dict(optimizer="AdamW", lr=2e-6)}
+
+
+def detection_batch(rng, n=2, k=8, size=64, num_classes=5):
+    """A CollateDetection batch of seeded numpy arrays: uint8 images and
+    k padded xywh boxes a image, about 60% of them valid."""
+    xy = rng.uniform(0, size * 0.6, size=(n, k, 2))
+    wh = rng.uniform(6, size * 0.4, size=(n, k, 2))
+    mask = (rng.uniform(size=(n, k)) < 0.6).astype(np.float32)
+    mask[:, 0] = 1.0
+    return {"image": rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+            "boxes": np.concatenate([xy, wh], -1).astype(np.float32),
+            "labels": rng.integers(0, num_classes, (n, k)).astype(np.int32),
+            "mask": mask}
+
+
+def _calibrate_dcn(variables, offset_scale=0.03, mask_scale=0.01):
+    """Scale the DCN blocks' offset (Conv_0) and mask (Conv_1) convolutions
+    of `random_flax_variables`. The maps they read reach magnitudes near
+    50, so unscaled offsets have a std near 75 and a 1e-7 change of the
+    input moves the logits by 2e-4 of their size; scaled, the offsets' std
+    is 0.5-2.3 over the three layers (many past +-1) and the model is as
+    well conditioned as with plain merges (6e-6)."""
+    def scale(path, x):
+        keys = [getattr(p, "key", "") for p in path]
+        if any(k.startswith("DeformableConvBlock") for k in keys):
+            if "Conv_0" in keys:
+                return (x * offset_scale).astype(np.float32)
+            if "Conv_1" in keys:
+                return (x * mask_scale).astype(np.float32)
+        return x
+    return jax.tree_util.tree_map_with_path(scale, variables)
+
+
+def train_step_parity(optimizer: str, frozen_stages: int, steps: int = 3,
+                      conv_type: str = "normal"):
+    """Three train steps of the JAX package and of the port from the same
+    weights on the same batches (see test_torch_port_train.py); `conv_type`
+    sets the FPN's merge blocks (the DCN engines)."""
+    import jax.numpy as jnp
+
+    from centernet_lightning_tpu.models.centernet import CenterNet as JCenterNet
+    from centernet_lightning_tpu.train.optim import make_optimizer as j_make
+    from centernet_lightning_tpu.train.state import TrainState as JState
+    from centernet_lightning_tpu.train.state import make_train_step as j_step
+
+    from centernet_lightning_torch.models.centernet import CenterNet as TCenterNet
+    from centernet_lightning_torch.train import optim as t_optim
+    from centernet_lightning_torch.train import state as t_state
+
+    cfg = dict(TRAIN_CFG, backbone_config={"frozen_stages": frozen_stages},
+               neck_config=dict(TRAIN_CFG["neck_config"], conv_type=conv_type))
+    opt = dict(TRAIN_OPT[optimizer], weight_decay=1e-3, norm_weight_decay=0.0,
+               warmup_epochs=1, warmup_decay=0.1, max_epochs=3,
+               steps_per_epoch=2, frozen_stages=frozen_stages)
+    rng = np.random.default_rng(100 + frozen_stages)
+    jtask = JCenterNet(**cfg)
+    variables = random_flax_variables(jtask, rng)
+    if conv_type != "normal":
+        variables = _calibrate_dcn(variables)
+    tx = j_make(variables["params"], **opt)
+    jstate = JState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                    batch_stats=variables["batch_stats"],
+                    opt_state=tx.init(variables["params"]), tx=tx,
+                    ema_params=variables["params"])
+    jstep = j_step(jtask, donate=False, ema_decay=0.9)
+
+    ttask = TCenterNet(**cfg)
+    model = ttask.model.to(memory_format=torch.channels_last)
+    model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    tstate = t_state.TrainState(model=model,
+                                tx=t_optim.make_optimizer(model, **opt))
+    tstate.init_ema()
+    tstep = t_state.make_train_step(ttask, ema_decay=0.9)
+
+    for step in range(steps):
+        batch = detection_batch(rng)
+        jstate, jl = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        tstate, tl = tstep(tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+        for key in ("heatmap", "box_2d", "total"):
+            np.testing.assert_allclose(float(tl[key]), float(jl[key]), rtol=1e-5,
+                                       err_msg=f"{key} loss, step {step}")
+    def close(got_t, ref_t, key):
+        ref_a = ref_t.numpy()
+        np.testing.assert_allclose(got_t.numpy(), ref_a, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(ref_a).max()),
+                                   err_msg=key)
+
+    ref = variables_to_state_dict({"params": to_numpy_tree(jstate.params),
+                                   "batch_stats": to_numpy_tree(jstate.batch_stats)})
+    start = variables_to_state_dict(variables)
+    got = model.state_dict()
+    moved = 0
+    for key, value in ref.items():
+        if not key.endswith("num_batches_tracked"):
+            close(got[key], value, key)
+            moved += not torch.equal(got[key], start[key])
+    assert moved > len(ref) // 2
+    ema = variables_to_state_dict({"params": to_numpy_tree(jstate.ema_params)})
+    for key, value in ema.items():
+        close(tstate.ema_params[key], value, f"ema {key}")
+    if frozen_stages:
+        frozen = [k for k, lab in tstate.tx.labels.items() if lab == "frozen"]
+        assert frozen and all(torch.equal(got[k], start[k]) for k in frozen)
+        for k in ("backbone.bn1.running_mean", "backbone.layer1.0.bn1.running_var"):
+            assert torch.equal(got[k], start[k]), k

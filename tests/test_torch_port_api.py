@@ -173,11 +173,14 @@ def test_build_from_yaml_and_deferred_options(tmp_path):
         ({"neck_config": {"weighted": True}}, "item 8"),
         ({"head_config": {"block": "separable"}}, "item 8"),
         ({"reid_config": {"emb_dim": 8}}, "item 10"),
-        ({"backbone_config": {"frozen_stages": 2}}, "item 7"),
+        ({"backbone_config": {"stem_space_to_depth": True}}, "item 7"),
+        ({"backbone_config": {"remat": True}}, "item 7"),
     ]:
         with pytest.raises(NotImplementedError, match=where):
             t_build({"model": {**TINY, **bad}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # checkpoints load now (test_torch_port_train.py); a run directory
+    # without one is an error
+    with pytest.raises(FileNotFoundError):
         t_build({"model": TINY}, checkpoint=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         pred.track_stream([])
