@@ -20,9 +20,12 @@ with its seconds (`phase_s`); any failure exits non-zero:
        O = 40; offsets drawn well past +-d (the clamp), exactly at +-d
        (the floor remap), integers (fraction 0) and +-50 (samples off the
        image at its border), and maps whose pointer is not 16-byte
-       aligned. The sampler must be bitwise equal; the fused kernel within
+       aligned. The sampler and the fused kernel's W re-layout (bf16) must
+       be bitwise equal to their twins; the fused kernel within
        1e-5 (f32) or 2^-6 (bf16) of the largest |output| (see FUSED_TOL),
-       and its launch must refuse a C too wide for its shared memory;
+       also at C = 432 in bf16 (the bf16 kernel streams C in chunks), while
+       its f32 launch must refuse a C too wide for its shared memory; the
+       bf16 kernel's registers, spills and shared memory are printed;
      - `max_pool_3x3_s2_auto`, bf16 and f32, at the ResNet stem's
        (64, 256, 256, 64), an odd (3, 37, 53, 24) map (also misaligned) and
        a 1 x 1 map, with negatives and -inf among the values: bitwise equal
@@ -44,7 +47,9 @@ with its seconds (`phase_s`); any failure exits non-zero:
   4. times (CUDA events, after warm-up, on the main paths' shapes):
      forward + decode images/s, the median of E2E_REPS rounds of
      E2E_ITERS calls (the DCN engines in turn within a round), the
-     kernels' ms beside their twins', their bounds and a library call's;
+     kernels' ms beside their twins', their bounds and a library call's
+     (the fused kernel also with its TFLOP/s, its share of the bound and
+     the weight re-layout alone);
      then torch.profiler breakdowns by kernel and the device's busy share,
      for both slices;
      then the pool kernel beside its 0.200 ms bound, its twin and
@@ -725,6 +730,9 @@ def main() -> int:
         ref_y = dcn.fused_reference(x, *planes, kern, d)
         torch.cuda.synchronize()
         same = torch.equal(taps, ref_taps)
+        if dtype == torch.bfloat16:   # the W re-layout kernel vs its twin
+            same = same and torch.equal(dcn_fused.pack_wgmma_kernel(kern).cpu(),
+                                        dcn_fused.pack_wgmma_kernel(kern.cpu()))
         taps_err = (taps.float() - ref_taps.float()).abs().max().item()
         y_err = (y.float() - ref_y.float()).abs().max().item()
         y_scale = ref_y.float().abs().max().item()
@@ -736,7 +744,8 @@ def main() -> int:
         emit({"phase": "kernel_vs_plain", "kernel": "dcn_sample+dcn_fused",
               "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
               "d": d, "version": version, "offsets": kind,
-              "misaligned": misaligned, "sample_bitwise_equal": same,
+              "misaligned": misaligned,
+              "sample_and_w_layout_bitwise_equal": same,
               "sample_max_abs_err": taps_err, "fused_max_abs_err": y_err,
               "fused_max_abs_out": y_scale,
               "fused_tolerance": FUSED_TOL[dtype] * y_scale})
@@ -746,19 +755,40 @@ def main() -> int:
                                  f"misaligned={misaligned}")
         n_dcn_ok += 1
     del x, planes, kern, taps, ref_taps, y, ref_y
-    # C past what one block's shared memory holds: the launch must refuse
-    for dtype, c in ((torch.bfloat16, 432), (torch.float32, 224)):
-        x, planes, kern = dcn_inputs((1, 4, 4, c, 16), dtype, 1, 2, "random", gen)
-        try:
-            dcn_fused.dcn_fused_conv(x, *planes, kern, 1)
-        except RuntimeError as err:
-            emit({"phase": "kernel_vs_plain", "kernel": "dcn_fused",
-                  "too_wide_C": c, "dtype": str(dtype).replace("torch.", ""),
-                  "raised": str(err)[:120]})
-        else:
-            raise AssertionError(f"dcn_fused took C={c} {dtype}, past its "
-                                 f"shared memory")
-    del x, planes, kern
+    # bf16 streams C in chunks of 64, so a C past the old shared-memory
+    # limit (416) is a correctness case; f32 keeps its limit (208): a wider
+    # C must be refused at the launch
+    x, planes, kern = dcn_inputs((1, 4, 4, 432, 16), torch.bfloat16, 1, 2,
+                                 "random", gen)
+    y = dcn_fused.dcn_fused_conv(x, *planes, kern, 1)
+    ref_y = dcn.fused_reference(x, *planes, kern, 1)
+    torch.cuda.synchronize()
+    if not torch.equal(dcn_fused.pack_wgmma_kernel(kern).cpu(),
+                       dcn_fused.pack_wgmma_kernel(kern.cpu())):
+        raise AssertionError("the W re-layout kernel differs from its twin at C=432")
+    y_err = (y.float() - ref_y.float()).abs().max().item()
+    y_scale = ref_y.float().abs().max().item()
+    dcn_err["dcn_fused"] = max(dcn_err["dcn_fused"], y_err)
+    fused_rel["bfloat16"] = max(fused_rel["bfloat16"], y_err / max(y_scale, 1e-30))
+    emit({"phase": "kernel_vs_plain", "kernel": "dcn_fused", "shape": [1, 4, 4, 432, 16],
+          "dtype": "bfloat16", "wide_C": 432, "fused_max_abs_err": y_err,
+          "fused_max_abs_out": y_scale,
+          "fused_tolerance": FUSED_TOL[torch.bfloat16] * y_scale})
+    if not y_err <= FUSED_TOL[torch.bfloat16] * y_scale:
+        raise AssertionError("dcn_fused differs from plain at C=432 bf16")
+    n_dcn_ok += 1
+    x, planes, kern = dcn_inputs((1, 4, 4, 224, 16), torch.float32, 1, 2, "random", gen)
+    try:
+        dcn_fused.dcn_fused_conv(x, *planes, kern, 1)
+    except RuntimeError as err:
+        emit({"phase": "kernel_vs_plain", "kernel": "dcn_fused", "too_wide_C": 224,
+              "dtype": "float32", "raised": str(err)[:120]})
+    else:
+        raise AssertionError("dcn_fused took C=224 float32, past its shared memory")
+    del x, planes, kern, y, ref_y
+    # the bf16 kernel's build (cudaFuncGetAttributes) and pipeline stages
+    emit({"phase": "kernel_vs_plain", "kernel": "dcn_fused",
+          "build": dcn_fused.kernel_info()})
     torch.cuda.empty_cache()
     # the max pool: bitwise equal to its twin and to F.max_pool2d
     pool_cases = [(shape, dtype, False) for shape in (POOL_STEM, POOL_ODD, POOL_ONE)
@@ -998,6 +1028,9 @@ def main() -> int:
                     align_corners=True), iters=20),
                 "fused_ms": cuda_ms(lambda: dcn_fused.dcn_fused_conv(
                     x, *planes, kern, 1), iters=20),
+                # the W re-layout kernel that every bf16 call launches, alone
+                "fused_pack_ms": cuda_ms(lambda: dcn_fused.pack_wgmma_kernel(kern),
+                                         iters=20),
                 "fused_plain_ms": cuda_ms(lambda: dcn.fused_reference(
                     x, *planes, kern, 1), iters=3),
                 "per_tap_path_ms": cuda_ms(lambda: torch.matmul(
@@ -1006,6 +1039,9 @@ def main() -> int:
             }
         sb = sample_bound(n, h, w, c, 2)
         fb = fused_bound(n, h, w, c, o, 2)
+        product = 2 * n * h * w * 9 * c * o
+        t["fused_tflops"] = product / (t["fused_ms"] * 1e-3) / 1e12
+        t["fused_bound_share"] = fb["bound_ms"] / t["fused_ms"]
         kernel_times.append({"shape": list(shape), **t,
                              "sample_bound": sb, "fused_bound": fb})
         emit({"phase": "dcn_kernel_times", "shape": list(shape),
