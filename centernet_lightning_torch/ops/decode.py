@@ -68,8 +68,9 @@ def peak_class_scores(
         if from_logits:
             heatmap = torch.where(pooled == heatmap, heatmap,
                                   heatmap.new_tensor(NEG_BIG))
-        else:
-            heatmap = heatmap * (pooled == heatmap)
+        else:  # a product would keep a NaN (NaN * 0): select, as XLA does
+            heatmap = torch.where(pooled == heatmap, heatmap,
+                                  heatmap.new_tensor(0.0))
     scores, labels = heatmap.max(dim=-1)  # first index of the max
     return scores.reshape(n, h * w), labels.to(torch.int32).reshape(n, h * w)
 

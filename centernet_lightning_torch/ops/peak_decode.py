@@ -5,13 +5,17 @@ uses them (port of ops/pallas_decode.py).
 and runs `peak_class_scores_reference` on a CPU tensor; there is no other
 fallback. Both compute, for an NHWC heatmap, the 3x3 pseudo-NMS mask with
 neutral edges (0 for probabilities, -1e30 for logits), then the per-pixel
-class max and first-index argmax, in f32. The kernel reads the head's
+class max and first-index argmax, in f32; a NaN in a class's window gives
+that class the neutral, as in the JAX package. The kernel reads the head's
 NHWC output as it lies (classes innermost), so no re-layout copy precedes
-it. Top-k and the box gather stay plain PyTorch (`ops/decode.py`).
+it. `launch_plan` cuts the map into the kernel's blocks (strips of columns,
+bands of rows, a ring of staged rows, class chunks); the CPU tests hold it.
+Top-k and the box gather stay plain PyTorch (`ops/decode.py`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, Optional
 
@@ -21,7 +25,8 @@ import torch.nn.functional as F
 from . import decode as decode_ops
 
 __all__ = ["peak_class_scores_cuda", "peak_class_scores_reference",
-           "decode_detections_fused", "KERNEL_SOURCE", "REPLACES"]
+           "decode_detections_fused", "launch_plan", "plan_for", "PeakPlan",
+           "kernel_info", "KERNEL_SOURCE", "REPLACES"]
 
 KERNEL_SOURCE = "centernet_lightning_torch/csrc/peak_decode.cu"
 REPLACES = "centernet_lightning_tpu/ops/pallas_decode.py:138"
@@ -49,16 +54,128 @@ def peak_class_scores_reference(heatmap: torch.Tensor,
     return scores.reshape(n, h * w), labels.reshape(n, h * w)
 
 
+SMEM_LIMIT = 232448       # H100: 227 KB of dynamic shared memory a block
+MAX_THREADS = 256         # the kernel's __launch_bounds__
+ITEMS = {1: 16, 4: 4, 8: 4}  # class vectors a lane holds, by vector width
+ALIGN = 128               # ring buffers start on 128 bytes
+SLACK = 32                # a span copied from and to 16-byte boundaries
+BAND, STAGES, STRIP = 32, 4, 64   # rows a block walks, staged rows, columns
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class PeakPlan:
+    """How csrc/peak_decode.cu cuts an (N, H, W, C) map. The fields are
+    the kernel's `struct Plan`, in order.
+
+    A block takes `strip` output columns of one image and `band` output
+    rows, with `strip * lanes` threads: `lanes` threads a pixel, each
+    holding `items` vectors of `vec` classes. `passes` class chunks of
+    `chunk` classes each stream the band once; `stages` input rows of
+    `stage_bytes` are staged at a time (a pixel's chunk at `pitch` bytes
+    when passes > 1)."""
+    vec: int
+    lanes: int
+    items: int
+    chunk: int
+    passes: int
+    strip: int
+    band: int
+    stages: int
+    pitch: int
+    stage_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return self.strip * self.lanes
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.stages * self.stage_bytes + 2 * self.stages * 8 + ALIGN
+
+    def blocks(self, n: int, h: int, w: int) -> int:
+        return n * -(-w // self.strip) * -(-h // self.band)
+
+    @functools.cached_property
+    def ints(self):
+        """The ten ints of the kernel's `struct Plan`."""
+        return (ctypes.c_int * 10)(*dataclasses.astuple(self))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(h: int, w: int, c: int, elt: int, aligned: bool) -> PeakPlan:
+    """The kernel's blocks for a map of H x W pixels of C classes of `elt`
+    bytes; `aligned`: the map's pointer is 16-byte aligned. The strip of
+    STRIP columns narrows for narrow maps and for wide pixels."""
+    vec = 16 // elt if aligned and (c * elt) % 16 == 0 else 1
+    most = ITEMS[vec]
+    nv = c // vec
+    if nv <= 32 * most:       # one pass: the fewest idle slots, then lanes
+        lanes = min((1, 2, 4, 8, 16, 32),
+                    key=lambda l: (-(-nv // l) > most, l * -(-nv // l), l))
+        items, chunk = -(-nv // lanes), c
+    else:                     # class chunks of 32 lanes x `most` vectors
+        lanes, items, chunk = 32, most, 32 * most * vec
+    passes = -(-c // chunk)
+    pitch = 0 if passes == 1 else _round_up(chunk * elt + SLACK, 16)
+    # a warp holds whole pixels; a strip need not pass the map's width
+    strip = max(32 // lanes, min(STRIP, MAX_THREADS // lanes,
+                                 1 << max(w - 1, 0).bit_length()))
+
+    def stage_bytes(s):     # one span of s + 2 pixels, or s + 2 pitches
+        row = (s + 2) * c * elt + SLACK if passes == 1 else (s + 2) * pitch
+        return _round_up(row, ALIGN)
+
+    while True:
+        plan = PeakPlan(vec, lanes, items, chunk, passes, strip, BAND, STAGES,
+                        pitch, stage_bytes(strip))
+        if plan.smem_bytes <= SMEM_LIMIT:
+            return plan
+        if strip == 32 // lanes:
+            raise ValueError(f"no peak plan fits C = {c} in shared memory")
+        strip //= 2
+
+
 @functools.cache
-def _launch_fn():
+def _lib():
     from ._build import load
 
-    fn = load("peak_decode").peak_class_scores_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = load("peak_decode")
+    lib.peak_class_scores_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p]
+    lib.peak_class_scores_launch.restype = ctypes.c_int
+    lib.peak_class_scores_info.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    lib.peak_class_scores_info.restype = ctypes.c_int
+    return lib
+
+
+def kernel_info(plan: PeakPlan, bf16: bool) -> dict:
+    """The build of the kernel `plan` launches: registers, spilled bytes and
+    static shared bytes a thread or block, and the plan's own sizes."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().peak_class_scores_info(int(bf16), plan.ints, out)
+    if err != 0:
+        raise RuntimeError(f"peak_class_scores_info failed: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "static_shared_bytes": out[2], "max_threads": out[3],
+            "dynamic_shared_bytes": plan.smem_bytes, "threads": plan.threads,
+            "strip": plan.strip, "band": plan.band, "stages": plan.stages,
+            "lanes": plan.lanes, "items": plan.items, "vec": plan.vec,
+            "passes": plan.passes}
+
+
+def plan_for(heatmap: torch.Tensor) -> PeakPlan:
+    """`launch_plan` for an (N, H, W, C) map as it lies in memory."""
+    _, h, w, c = heatmap.shape
+    return launch_plan(h, w, c, heatmap.element_size(),
+                       heatmap.data_ptr() % 16 == 0)
 
 
 def peak_class_scores_cuda(heatmap: torch.Tensor, from_logits: bool = False):
@@ -85,14 +202,15 @@ def peak_class_scores_cuda(heatmap: torch.Tensor, from_logits: bool = False):
     if n * h * w >= 2 ** 31:
         raise ValueError(f"heatmap {tuple(heatmap.shape)}: the kernel indexes "
                          f"pixels with 32-bit ints")
+    plan = plan_for(heatmap)
     scores = torch.empty((n, h * w), dtype=torch.float32, device=heatmap.device)
     labels = torch.empty((n, h * w), dtype=torch.int32, device=heatmap.device)
     with torch.cuda.device(heatmap.device):
         stream = torch.cuda.current_stream(heatmap.device).cuda_stream
-        err = _launch_fn()(
+        err = _lib().peak_class_scores_launch(
             heatmap.data_ptr(), scores.data_ptr(), labels.data_ptr(),
             n, h, w, c, int(heatmap.dtype == torch.bfloat16),
-            _neutral(from_logits), stream)
+            _neutral(from_logits), plan.ints, stream)
     if err != 0:
         raise RuntimeError(f"peak_class_scores kernel launch failed: CUDA error {err}")
     peak_class_scores_cuda.launches += 1

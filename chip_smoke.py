@@ -13,7 +13,13 @@ with its seconds (`phase_s`); any failure exits non-zero:
      card:
      - `peak_class_scores_cuda`, bf16 and f32, probabilities and logits, at
        the flagship (64, 128, 128, 80) map and an odd (3, 37, 53, 7) one,
-       plus forced ties; scores bitwise equal, labels exactly equal;
+       plus forced ties, NaNs (inside, at a corner, along borders), LVIS's
+       1203 classes (also misaligned: the kernel streams classes in
+       chunks of one-value loads), 1208 and 516 classes (chunks of 16-byte
+       vectors), H = 1, W = 1 and a W that leaves a partial strip of
+       columns; scores bitwise equal, labels exactly equal; the kernel's
+       build (registers, spills, shared memory, strip, band, ring depth)
+       for the flagship map is printed;
      - `dcn_sample_taps` and `dcn_fused_conv`, f32 and bf16, d = 1 and 2,
        DCNv1 and v2, at the DCN slice's three layers (32, S, S, 128) for
        S = 32, 64, 128 with O = 128, and an odd (3, 37, 53, 24) map with
@@ -48,8 +54,10 @@ with its seconds (`phase_s`); any failure exits non-zero:
      forward + decode images/s, the median of E2E_REPS rounds of
      E2E_ITERS calls (the DCN engines in turn within a round), the
      kernels' ms beside their twins', their bounds and a library call's
-     (the fused kernel also with its TFLOP/s, its share of the bound and
-     the weight re-layout alone);
+     (the peak kernel also with its share of the bound and on 8 images:
+     64 blocks, at most one an SM, on 21 MB that stay in L2, which times
+     one block's walk; the fused kernel also with
+     its TFLOP/s, its share of the bound and the weight re-layout alone);
      then torch.profiler breakdowns by kernel and the device's busy share,
      for both slices;
      then the pool kernel beside its 0.200 ms bound, its twin and
@@ -87,6 +95,7 @@ Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
 """
 import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -101,6 +110,7 @@ H100_F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 FLAGSHIP = (64, 128, 128, 80)
 ODD = (3, 37, 53, 7)
+LVIS = (2, 32, 48, 1203)                         # LVIS's class count
 BATCH, SIZE = 64, 512
 DCN_BATCH = 32
 FORWARD_RTOL = 1e-4
@@ -248,6 +258,14 @@ def peak_inputs(shape, kind, from_logits, dtype, gen):
         x = torch.full(shape, 0.25, device=dev)
     elif kind == "equal_classes":
         x = draw((n, h, w, 1)).expand(shape).contiguous()
+    elif kind == "nan":                # NaNs inside, at a corner, on borders
+        x = draw(shape)
+        x[:, h // 2, w // 2, ::2] = float("nan")
+        x[:, 0, 0, :] = float("nan")
+        x[:, -1, 1:-1, c // 2] = float("nan")
+        x[:, 1:-1, 0, -1] = float("nan")
+        x[:, 1:-1, 1:-1][torch.rand((n, max(h - 2, 0), max(w - 2, 0), c),
+                                    generator=gen, device=dev) < 0.01] = float("nan")
     elif kind == "misaligned":         # contiguous, but not 16-byte aligned
         flat = torch.empty(n * h * w * c + 1, dtype=dtype, device=dev)
         x = flat[1:].view(shape)
@@ -681,7 +699,16 @@ def main() -> int:
     cases = [(shape, "random") for shape in (FLAGSHIP, ODD, (3, 37, 53, 16))]
     cases += [(ODD, "misaligned"), ((2, 40, 24, 80), "misaligned")]
     cases += [(shape, kind) for shape in (ODD, (2, 128, 128, 80))
-              for kind in ("constant", "equal_classes", "edge_ties")]
+              for kind in ("constant", "equal_classes", "edge_ties", "nan")]
+    cases += [(LVIS, "random"), (LVIS, "nan"), (LVIS, "misaligned")]
+    # class chunks of 16-byte vectors (C = 1203 takes one-value loads in
+    # both dtypes): 1208 classes (bf16 two chunks, f32 three), 516 (f32 two
+    # chunks of 4-value vectors, bf16 two of one-value loads)
+    cases += [(shape, kind) for shape in ((2, 32, 48, 1208), (2, 32, 48, 516))
+              for kind in ("random", "nan")]
+    cases += [(shape, kind) for shape in ((2, 1, 70, 80), (2, 70, 1, 80),
+                                          (2, 9, 100, 80), (2, 1, 1, 5))
+              for kind in ("random", "nan")]
     max_err = 0.0
     for shape, kind in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -703,6 +730,10 @@ def main() -> int:
                     raise AssertionError(f"peak kernel differs from plain: "
                                          f"{shape} {kind} {dtype} {from_logits}")
     del x, s, lab, rs, rl
+    # the kernel's build (cudaFuncGetAttributes) and plan at the serving map
+    emit({"phase": "kernel_vs_plain", "kernel": "peak_class_scores",
+          "build": peak_decode.kernel_info(
+              peak_decode.launch_plan(*FLAGSHIP[1:], 2, True), bf16=True)})
 
     # the DCN kernels: (shape, dtype, d, version, kind, misaligned)
     layer_shapes = [(DCN_BATCH, h, w, DCN_WIDTH, DCN_WIDTH) for h, w in DCN_LAYERS]
@@ -958,6 +989,11 @@ def main() -> int:
             heat, True), iters=50)
         plain_ms = cuda_ms(lambda: peak_decode.peak_class_scores_reference(
             heat, True), iters=5)
+        # 8 images (64 blocks: one block's walk on an SM of its own, on
+        # 21 MB that stay in the 50 MB L2)
+        heat8 = heat[:8].contiguous()
+        kernel_b8_ms = cuda_ms(lambda: peak_decode.peak_class_scores_cuda(
+            heat8, True), iters=200)
     n, h, w, c = heat.shape
     moved = heat.numel() * heat.element_size() + n * h * w * (4 + 4)
     ops = heat.numel() * 10        # 8 neighbour maxes, 1 compare, 1 argmax step
@@ -967,6 +1003,10 @@ def main() -> int:
           "forward_decode_rounds": e2e,
           "forward_ms": fwd_ms, "decode_fused_ms": dec_ms,
           "decode_plain_ms": plain_dec_ms, "peak_kernel_ms": kernel_ms,
+          "bound_share": peak_b["bound_ms"] / kernel_ms,
+          "peak_plan": dataclasses.asdict(peak_decode.plan_for(heat)),
+          "peak_kernel_b8_ms": kernel_b8_ms,
+          "peak_kernel_b8_bound_share": peak_b["bound_ms"] / 8 / kernel_b8_ms,
           "peak_plain_ms": plain_ms, **peak_b, "bound_ops": ops,
           "library_ms": None,
           "library_note": "no single PyTorch call computes the 3x3 peak mask "

@@ -4,7 +4,9 @@ decode, on the CPU.
 The plain twin `peak_class_scores_reference` must equal the Pallas kernel
 `peak_class_scores_pallas` (interpret mode, both layouts) and the plain
 `ops/decode.py:peak_class_scores` EXACTLY: a max selects an input value,
-so there is no rounding to excuse. The CUDA kernel itself is held against
+so there is no rounding to excuse. That holds for maps with NaNs too: a
+NaN in a class's 3x3 window gives that class the neutral (0, or -1e30 for
+logits), in the JAX package and in both of the port's plain paths. The CUDA kernel itself is held against
 the same twin on the card by chip_smoke.py.
 """
 import os
@@ -40,6 +42,12 @@ def _maps(kind, shape, from_logits, rng):
         x[:, 0, :, :] = x[:, 0, :1, :]
         x[:, :, -1, :] = x[:, :1, -1, :]
         x[:, -1, :2, :] = x[:, -1, -1:, :]
+    elif kind == "nan":                   # NaNs inside, at a corner, on a border
+        x = draw(shape)
+        x[:, h // 2, w // 2, ::2] = np.nan
+        x[:, 0, 0, :] = np.nan
+        x[:, -1, 1:-1, c // 2] = np.nan
+        x[:, 1:-1, 0, -1] = np.nan
     else:                                 # coarse levels: many tied values
         x = np.round(draw(shape) * 4) / 4
     return x.astype(np.float32)
@@ -49,6 +57,7 @@ CASES = [
     ("random", (2, 9, 13, 5)), ("random", (1, 16, 16, 33)),
     ("constant", (1, 6, 7, 4)), ("equal_classes", (2, 8, 8, 7)),
     ("edge_ties", (1, 7, 9, 3)), ("quantized", (2, 10, 12, 6)),
+    ("nan", (2, 9, 13, 5)),
 ]
 
 
@@ -84,6 +93,30 @@ def test_port_plain_peak_equals_twin(from_logits):
     b = TP.peak_class_scores_reference(x, from_logits=from_logits)
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u.numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("from_logits", [False, True], ids=["probs", "logits"])
+def test_port_plain_peak_equals_jax_on_nan_maps(from_logits, dtype):
+    """The port's plain decode (ops/decode.py) on maps with NaNs: a NaN
+    pixel, or a pixel whose window holds a NaN, scores the neutral with the
+    JAX package's label (jnp.argmax's first index)."""
+    x = torch.from_numpy(_maps("nan", (2, 9, 13, 5), from_logits,
+                               np.random.default_rng(4))).to(getattr(torch, dtype))
+    x32 = x.float().numpy()
+    got_s, got_l = T.peak_class_scores(x.float(), from_logits=from_logits)
+    ref_s, ref_l = J.peak_class_scores(jnp.asarray(x32), from_logits=from_logits)
+    assert not torch.isnan(got_s).any()
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s, np.float32))
+    np.testing.assert_array_equal(got_l.numpy(), np.asarray(ref_l))
+    # the labels are scores.max's first index, as jnp.argmax's
+    heat = torch.from_numpy(x32)
+    pooled = torch.nn.functional.max_pool2d(
+        heat.permute(0, 3, 1, 2), 3, stride=1, padding=1).permute(0, 2, 3, 1)
+    neutral = T.NEG_BIG if from_logits else 0.0
+    masked = torch.where(pooled == heat, heat, torch.tensor(neutral))
+    np.testing.assert_array_equal(
+        got_l.numpy(), masked.max(dim=-1).indices.reshape(2, -1).numpy())
 
 
 def test_peak_wrapper_on_cpu_runs_the_twin_without_counting():
