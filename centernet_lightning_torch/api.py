@@ -26,7 +26,7 @@ from .train.config import load_config, normalize_config
 
 __all__ = ["CenterNetPredictor", "build_centernet"]
 
-_TRACKING = "tracking is ported with the tracking slice (ROADMAP Queue 1 item 10)"
+_TRACKING = "tracking is ported with the tracking slice (ROADMAP Queue 1 item 5)"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -195,7 +195,7 @@ class CenterNetPredictor:
     def quantize(self, *args, **kwargs):
         raise NotImplementedError(
             "quantize is ported with the serving and int8 slice "
-            "(ROADMAP Queue 1 item 11)")
+            "(ROADMAP Queue 1 item 6)")
 
 
 def build_centernet(

@@ -93,7 +93,7 @@ class ResNet(nn.Module):
         if stem_space_to_depth or remat:
             raise NotImplementedError(
                 "stem_space_to_depth and remat are not ported yet "
-                "(ROADMAP Queue 1 item 7, deferred)")
+                "(ROADMAP Queue 1 item 2b)")
         self.stage_sizes = tuple(stage_sizes)
         self.frozen_stages = int(frozen_stages)
         self.width = width

@@ -1,5 +1,6 @@
 """Shared building blocks (port of models/layers.py: ConvNormAct,
-DeformableConvBlock, Upsample).
+SeparableConvNormAct, DeformableConvBlock, Upsample, Downsample, Fuse,
+SPP).
 
 Modules take and return NCHW tensors; the model keeps them in
 `torch.channels_last` memory format, so a convolution reads and writes the
@@ -14,7 +15,7 @@ one, n/(n-1) larger).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,8 +24,10 @@ from torch import nn
 from ..ops import dcn as dcn_ops
 from ..ops import dcn_fused, dcn_sample
 
-__all__ = ["BatchNorm2d", "ConvNormAct", "DeformableConvBlock", "DeformWeight",
-           "Upsample", "CONV_BLOCKS", "get_conv_block", "batch_norm"]
+__all__ = ["BatchNorm2d", "ConvNormAct", "SeparableConvNormAct",
+           "DeformableConvBlock", "DeformWeight", "Upsample", "Downsample",
+           "Fuse", "SPP", "SameConv2d", "CONV_BLOCKS", "get_conv_block",
+           "batch_norm", "same_pads", "bilinear_kernel"]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -58,12 +61,45 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def batch_norm(channels: int) -> BatchNorm2d:
-    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+def batch_norm(channels: int, eps: float = BN_EPS) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=eps, momentum=BN_MOMENTUM)
+
+
+def same_pads(size: int, kernel_size: int, stride: int) -> Tuple[int, int]:
+    """flax / lax `padding="SAME"` along one axis: the total pad is
+    max((ceil(size / stride) - 1) * stride + k - size, 0), the low side
+    taking the smaller half."""
+    total = max((-(-size // stride) - 1) * stride + kernel_size - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv2d(nn.Conv2d):
+    """`nn.Conv2d` padded as flax's `padding="SAME"`.
+
+    At stride 1 and an odd kernel SAME is the symmetric `k // 2`, which
+    the convolution applies itself. Otherwise the pad depends on the
+    input's size (stride 2 on an even input pads (0, 1) at k = 3), so the
+    input is padded first (`same_pads`, one copy) and convolved unpadded.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, groups: int = 1, bias: bool = True):
+        self.symmetric = stride == 1 and kernel_size % 2 == 1
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=kernel_size // 2 if self.symmetric else 0,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.symmetric:
+            k, s = self.kernel_size[0], self.stride[0]
+            top, bottom = same_pads(x.shape[2], k, s)
+            left, right = same_pads(x.shape[3], k, s)
+            x = F.pad(x, (left, right, top, bottom))
+        return super().forward(x)
 
 
 class ConvNormAct(nn.Module):
-    """Conv -> BatchNorm -> activation, padding "SAME" (odd kernels).
+    """Conv (padding "SAME") -> BatchNorm -> activation.
 
     Parameters: `conv` (bias only without norm) and `bn`, the flax
     `Conv_0` and `BatchNorm_0` of the same block.
@@ -73,13 +109,8 @@ class ConvNormAct(nn.Module):
                  kernel_size: int = 3, stride: int = 1, groups: int = 1,
                  act: Optional[Callable] = F.relu, use_norm: bool = True):
         super().__init__()
-        if kernel_size % 2 == 0:
-            raise NotImplementedError(
-                "ConvNormAct: even kernels need flax's asymmetric SAME "
-                "padding; no block on the serving path uses one")
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
-                              stride=stride, padding=kernel_size // 2,
-                              groups=groups, bias=not use_norm)
+        self.conv = SameConv2d(in_channels, out_channels, kernel_size,
+                               stride=stride, groups=groups, bias=not use_norm)
         self.bn = batch_norm(out_channels) if use_norm else None
         self.act = act
 
@@ -92,26 +123,195 @@ class ConvNormAct(nn.Module):
         return x
 
 
+class SeparableConvNormAct(nn.Module):
+    """Depthwise k x k ConvNormAct (groups = in_channels, strided SAME),
+    then a pointwise ConvNormAct, each with BN and the activation.
+    `blocks.{0,1}` are flax `ConvNormAct_{0,1}`."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1,
+                 act: Optional[Callable] = F.relu):
+        super().__init__()
+        self.blocks = nn.ModuleList([
+            ConvNormAct(in_channels, in_channels, kernel_size, stride=stride,
+                        groups=in_channels, act=act),
+            ConvNormAct(in_channels, out_channels, 1, act=act)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.blocks[1](self.blocks[0](x))
+
+
+def bilinear_kernel(k: int, channels: int) -> torch.Tensor:
+    """The bilinear-interpolation transpose-conv kernel, (k, k, C, C) in
+    flax's layout, as the JAX package's `_bilinear_kernel`."""
+    factor = (k + 1) // 2
+    center = factor - 1 if k % 2 == 1 else factor - 0.5
+    og = torch.arange(k, dtype=torch.float64)
+    row = 1 - (og - center).abs() / factor
+    filt = (row[:, None] * row[None, :]).float()
+    kernel = torch.zeros(k, k, channels, channels)
+    idx = torch.arange(channels)
+    kernel[:, :, idx, idx] = filt[:, :, None]
+    return kernel
+
+
 class Upsample(nn.Module):
     """x2 upsample: nearest or bilinear (half-pixel centres, as
-    `jax.image.resize`). The conv_transpose form carries weights and waits
-    for the slice that ports the remaining necks and blocks."""
+    `jax.image.resize`), or `conv_transpose`: a stride-2 transpose conv
+    (`kernel_size`, no bias; bilinear-initialised unless
+    `init_bilinear=False`, see models/meta.py:init_weights), BatchNorm and
+    ReLU, whose `conv`/`bn` are flax `ConvTranspose_0`/`BatchNorm_0`.
 
-    def __init__(self, method: str = "nearest"):
+    Flax's transpose conv does not flip its kernel and torch's does, so
+    `conv.weight` is flip(kernel, (0, 1)) as (in, out, k, k)
+    (utils/convert.py). `lax.conv_transpose`'s SAME pads the dilated input
+    with k + s - 2 in all, ceil of half low (k - 1 when s > k - 1), which
+    at odd k is asymmetric; the transpose conv runs unpadded and its
+    output is cut to 2 H x 2 W from k - 1 - low.
+    """
+
+    def __init__(self, method: str = "nearest", channels: Optional[int] = None,
+                 kernel_size: int = 4, init_bilinear: bool = True):
         super().__init__()
-        if method == "conv_transpose":
-            raise NotImplementedError(
-                "Upsample(method='conv_transpose') is ported with the "
-                "remaining necks and blocks (ROADMAP Queue 1 item 8)")
-        if method not in ("nearest", "bilinear"):
+        if method not in ("nearest", "bilinear", "conv_transpose"):
             raise ValueError(f"unknown upsample method {method!r}")
         self.method = method
+        self.init_bilinear = init_bilinear
+        if method == "conv_transpose":
+            if channels is None:
+                raise ValueError("Upsample('conv_transpose') needs channels")
+            k, s = kernel_size, 2
+            low = k - 1 if s > k - 1 else -(-(k + s - 2) // 2)
+            self.crop = k - 1 - low
+            self.conv = nn.ConvTranspose2d(channels, channels, k, stride=s,
+                                           bias=False)
+            self.bn = batch_norm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.method == "nearest":
             return F.interpolate(x, scale_factor=2, mode="nearest")
-        return F.interpolate(x, scale_factor=2, mode="bilinear",
-                             align_corners=False)
+        if self.method == "bilinear":
+            return F.interpolate(x, scale_factor=2, mode="bilinear",
+                                 align_corners=False)
+        h, w = 2 * x.shape[2], 2 * x.shape[3]
+        y = self.conv(x)
+        # negative pads cut: rows [crop, crop + 2H) of the full output,
+        # zeros past its end (only when k < s)
+        c = self.crop
+        y = F.pad(y, (-c, w + c - y.shape[3], -c, h + c - y.shape[2]))
+        return F.relu(self.bn(y))
+
+
+class Downsample(nn.Module):
+    """x2 downsample: `max` / `avg` over 2 x 2 windows at stride 2 with
+    `reduce_window`'s SAME (odd sizes pad the high side: -inf for max, 0
+    for avg, which still divides by 4), or `conv`: a 3x3/s2 ConvNormAct,
+    `conv` (flax `ConvNormAct_0`)."""
+
+    def __init__(self, method: str = "max", channels: Optional[int] = None,
+                 in_channels: Optional[int] = None):
+        super().__init__()
+        if method not in ("max", "avg", "conv"):
+            raise ValueError(f"unknown downsample method {method!r}")
+        self.method = method
+        if method == "conv":
+            if in_channels is None:
+                raise ValueError("Downsample('conv') needs in_channels")
+            self.conv = ConvNormAct(in_channels, channels or in_channels, 3,
+                                    stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.method == "conv":
+            return self.conv(x)
+        if self.method == "max":
+            return F.max_pool2d(x, 2, 2, ceil_mode=True)
+        x = F.pad(x, (0, x.shape[3] % 2, 0, x.shape[2] % 2))
+        return F.avg_pool2d(x, 2, 2)
+
+
+class Fuse(nn.Module):
+    """BiFPN / IDA fusion node (port of the JAX `Fuse`).
+
+    Each input whose width is not `out_channels` gets a 1x1 projection
+    (ConvNormAct, no activation); every input is resized to the first
+    one's H x W (a larger map by one 2 x 2 max, a smaller one by a nearest
+    2x broadcast, or `jax.image.resize` at other ratios and for bilinear);
+    they are summed, with softmax-free weights relu(w) / (sum relu(w) +
+    eps) when `weighted` (`fuse_weights`, ones at init), and the sum goes
+    through a 3x3 `conv_type` block. `blocks` holds the projections, then
+    the output block: flax `ConvNormAct_{i}` are `blocks.{i}` and a DCN or
+    separable output block is `blocks.{P}` after the P projections.
+    """
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int,
+                 weighted: bool = False, upsample: str = "nearest",
+                 conv_type: str = "normal", eps: float = 1e-4):
+        super().__init__()
+        self.upsample = upsample
+        self.eps = eps
+        blocks: List[nn.Module] = []
+        self._projection: List[Optional[int]] = []
+        for c in in_channels:
+            if c != out_channels:
+                self._projection.append(len(blocks))
+                blocks.append(ConvNormAct(c, out_channels, 1, act=None))
+            else:
+                self._projection.append(None)
+        blocks.append(get_conv_block(conv_type)(out_channels, out_channels, 3))
+        self.blocks = nn.ModuleList(blocks)
+        self.fuse_weights = (nn.Parameter(torch.ones(len(in_channels)))
+                             if weighted else None)
+
+    def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+        target = tuple(inputs[0].shape[2:])
+        fused = []
+        for f, proj in zip(inputs, self._projection):
+            if proj is not None:
+                f = self.blocks[proj](f)
+            if tuple(f.shape[2:]) != target:
+                if f.shape[2] < target[0]:
+                    if (self.upsample == "nearest" and target[0] == 2 * f.shape[2]
+                            and target[1] == 2 * f.shape[3]):
+                        f = F.interpolate(f, scale_factor=2, mode="nearest")
+                    elif self.upsample == "nearest":
+                        # jax.image.resize's half-pixel centres: torch's
+                        # "nearest-exact" ("nearest" agrees only at 2x)
+                        f = F.interpolate(f, size=target, mode="nearest-exact")
+                    else:
+                        f = F.interpolate(f, size=target, mode="bilinear",
+                                          align_corners=False)
+                else:
+                    f = F.max_pool2d(f, 2, 2, ceil_mode=True)
+            fused.append(f)
+        if self.fuse_weights is not None:
+            w = F.relu(self.fuse_weights)
+            w = w / (w.sum() + self.eps)
+            out = sum(wi * f for wi, f in zip(w, fused))
+        else:
+            out = sum(fused)
+        return self.blocks[-1](out)
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling, the model's `extra_block` on the coarsest
+    map: a 1x1 ConvNormAct to C/2, max pools of `pool_sizes` at stride 1
+    (-inf padding), the concatenation and a 1x1 ConvNormAct
+    (`blocks.{0,1}`, flax `ConvNormAct_{0,1}`)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 pool_sizes: Sequence[int] = (5, 9, 13)):
+        super().__init__()
+        self.out_channels = out_channels
+        self.pool_sizes = tuple(pool_sizes)
+        hidden = in_channels // 2
+        self.blocks = nn.ModuleList([
+            ConvNormAct(in_channels, hidden, 1),
+            ConvNormAct(hidden * (1 + len(self.pool_sizes)), out_channels, 1)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.blocks[0](x)
+        pools = [x] + [F.max_pool2d(x, k, 1, k // 2) for k in self.pool_sizes]
+        return self.blocks[1](torch.cat(pools, dim=1))
 
 
 class DeformWeight(nn.Module):
@@ -227,6 +427,7 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 CONV_BLOCKS = {
     "normal": ConvNormAct,
+    "separable": SeparableConvNormAct,
     "dcn": DeformableConvBlock,
     "deformable": DeformableConvBlock,
     # bounded engines: offsets clamped to [-d, d]; "dcn_fast" is d = 2
@@ -239,16 +440,8 @@ CONV_BLOCKS = {
        for d in (1, 2)},
 }
 
-_LATER_BLOCKS = {
-    "separable": "the remaining necks and blocks (ROADMAP Queue 1 item 8)",
-}
-
-
 def get_conv_block(name: str):
     if name in CONV_BLOCKS:
         return CONV_BLOCKS[name]
-    if name in _LATER_BLOCKS:
-        raise NotImplementedError(
-            f"conv block {name!r} is ported with {_LATER_BLOCKS[name]}")
     raise KeyError(f"unknown conv block {name!r}; available: "
                    f"{sorted(CONV_BLOCKS)}")

@@ -1,4 +1,5 @@
-"""Model assembly: backbone -> neck -> {name: head} (port of models/meta.py).
+"""Model assembly: backbone -> [extra block] -> neck -> {name: head}
+(port of models/meta.py).
 
 `GenericModel.forward` keeps the JAX package's layout: NHWC images in,
 NHWC head maps out. Inside it runs NCHW convolutions on a
@@ -8,36 +9,56 @@ each head's NHWC output is contiguous.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .backbones import build_backbone
+from .backbones.mobilenet import SqueezeExcite
 from .backbones.resnet import BasicBlock, Bottleneck
 from .heads import GenericHead
-from .layers import DeformableConvBlock
+from .layers import SPP, DeformableConvBlock, Fuse, Upsample, bilinear_kernel
 from .necks import build_neck
 
 __all__ = ["GenericModel", "create_model", "init_weights"]
 
 
 class GenericModel(nn.Module):
-    """State-dict keys start with `backbone.`, `neck.` and `heads.<name>.`,
-    the layout the JAX package's `torch_convert._split_by_prefix` reads."""
+    """State-dict keys start with `backbone.`, `neck.`, `heads.<name>.`
+    and `extra_block.`, the layout the JAX package's
+    `torch_convert._split_by_prefix` reads. `extra_block` (an SPP, or
+    None) runs on the coarsest backbone map before the neck."""
 
     def __init__(self, backbone: nn.Module, neck: nn.Module,
-                 heads: Dict[str, nn.Module]):
+                 heads: Dict[str, nn.Module],
+                 extra_block: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.heads = nn.ModuleDict(heads)
+        self.extra_block = extra_block
+
+    def _features(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        features = self.backbone(x)
+        if self.extra_block is not None:
+            features = list(features)
+            features[-1] = self.extra_block(features[-1])
+        return features
+
+    def _heads(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {name: head(x).permute(0, 2, 3, 1).contiguous()
+                for name, head in self.heads.items()}
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        out = self.neck(self.backbone(x))
-        return {name: head(out).permute(0, 2, 3, 1).contiguous()
-                for name, head in self.heads.items()}
+        return self._heads(self.neck(self._features(x)))
+
+    def multilevel_forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        """Every head on every level of the neck's pyramid, finest first;
+        the neck must take `return_pyramid` (FPN, BiFPN)."""
+        pyramid = self.neck(self._features(x), return_pyramid=True)
+        return [self._heads(level) for level in pyramid]
 
 
 def create_model(
@@ -59,15 +80,23 @@ def create_model(
     if reid_config is not None:
         raise NotImplementedError(
             "reid heads are ported with the tracking slice "
-            "(ROADMAP Queue 1 item 10)")
-    if extra_block is not None:
-        raise NotImplementedError(
-            "extra blocks (SPP) are ported with the remaining necks and "
-            "blocks (ROADMAP Queue 1 item 8)")
+            "(ROADMAP Queue 1 item 5)")
     head_config = dict(head_config or {})
     bb = build_backbone(backbone, in_channels=input_channels,
                         **dict(backbone_config or {}))
-    nk = build_neck(neck, bb.out_channels, **dict(neck_config or {}))
+    widths = list(bb.out_channels)
+    if isinstance(extra_block, dict):
+        eb = dict(extra_block)
+        eb_name = eb.pop("name", eb.pop("type", "SPP"))
+        if str(eb_name).upper() != "SPP":
+            raise KeyError(f"unknown extra_block '{eb_name}' (available: SPP)")
+        # out_channels defaults to the last stage's, so the neck's
+        # contract is unchanged
+        eb.setdefault("out_channels", widths[-1])
+        extra_block = SPP(widths[-1], **eb)
+    if extra_block is not None:
+        widths[-1] = getattr(extra_block, "out_channels", widths[-1])
+    nk = build_neck(neck, widths, **dict(neck_config or {}))
     stride = bb.stride // nk.stride
 
     feat = nk.out_channels
@@ -79,7 +108,7 @@ def create_model(
         "box_2d": GenericHead(feat, 4, init_bias=box_init_bias,
                               **head_config),
     }
-    return GenericModel(bb, nk, heads), stride
+    return GenericModel(bb, nk, heads, extra_block=extra_block), stride
 
 
 def _trunc_normal_fan_in(weight: torch.Tensor, scale: float,
@@ -95,12 +124,14 @@ def _trunc_normal_fan_in(weight: torch.Tensor, scale: float,
 @torch.no_grad()
 def init_weights(model: GenericModel, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from `generator`: he_normal
-    convolutions, lecun_normal for the residual projections and the head
-    output convolutions, unit/zero BatchNorm with the last BN of each
-    residual block zeroed, and each head's constant output bias; a DCN
-    block's offset and mask convolutions are zero and its deformable
-    kernel he_normal over fan-in k^2 C. Same distributions, not the same
-    numbers: jax.random and torch differ."""
+    convolutions, lecun_normal for the residual projections, the head
+    output convolutions and the squeeze-excite convolutions (zero biases),
+    unit/zero BatchNorm with the last BN of each residual block zeroed,
+    each head's constant output bias; a DCN block's offset and mask
+    convolutions are zero and its deformable kernel he_normal over fan-in
+    k^2 C; a transpose conv is the bilinear kernel, or he_normal over
+    fan-in k^2 C_in; fusion weights are ones. Same distributions, not the
+    same numbers: jax.random and torch differ."""
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Conv2d):
             plain = name.endswith(("downsample.0", "out_conv"))
@@ -122,3 +153,16 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
                     conv.weight.zero_()
                     conv.bias.zero_()
             _trunc_normal_fan_in(mod.deform.weight, 2.0, generator)
+        elif isinstance(mod, SqueezeExcite):
+            for conv in (mod.reduce, mod.expand):
+                _trunc_normal_fan_in(conv.weight, 1.0, generator)
+        elif isinstance(mod, Upsample) and mod.method == "conv_transpose":
+            w = mod.conv.weight                       # (in, out, k, k)
+            if mod.init_bilinear:
+                w.copy_(bilinear_kernel(w.shape[-1], w.shape[0])
+                        .permute(2, 3, 0, 1))
+            else:
+                # fan-in k^2 C_in, flax's for the (k, k, in, out) kernel
+                _trunc_normal_fan_in(w.transpose(0, 1), 2.0, generator)
+        elif isinstance(mod, Fuse) and mod.fuse_weights is not None:
+            mod.fuse_weights.fill_(1.0)

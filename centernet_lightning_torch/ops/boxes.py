@@ -48,7 +48,9 @@ def box_inter_union(boxes1: torch.Tensor, boxes2: torch.Tensor):
     y1 = torch.maximum(boxes1[..., 1], boxes2[..., 1])
     x2 = torch.minimum(boxes1[..., 2], boxes2[..., 2])
     y2 = torch.minimum(boxes1[..., 3], boxes2[..., 3])
-    inter = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    # maximum, not clamp: half the gradient at a tie, as jnp.clip
+    w, h = x2 - x1, y2 - y1
+    inter = torch.maximum(w, torch.zeros_like(w)) * torch.maximum(h, torch.zeros_like(h))
     return inter, area1 + area2 - inter
 
 

@@ -122,7 +122,10 @@ def gather_and_decode_boxes(
     offsets = offsets.float()
     if box_log:
         offsets = torch.exp(offsets)
-    offsets = torch.clamp(offsets * box_multiplier, min=0)
+    # maximum, not clamp: at exactly 0 it passes half the gradient, as
+    # jnp.clip does (clamp passes all of it)
+    offsets = offsets * box_multiplier
+    offsets = torch.maximum(offsets, torch.zeros_like(offsets))
 
     boxes = torch.stack([cx - offsets[..., 0], cy - offsets[..., 1],
                          cx + offsets[..., 2], cy + offsets[..., 3]], dim=-1)

@@ -234,8 +234,8 @@ def decode_detections_fused(
 ) -> Dict[str, torch.Tensor]:
     """ops.decode.decode_detections with stages 1-2 in the fused kernel.
 
-    The heatmap may be the model's own bf16 output; scores, boxes and
-    embeddings come back f32. Windows other than 3x3 take the plain path.
+    The heatmap may be the model's own bf16 output (an fp16 one is widened
+    to f32 for the kernel); scores, boxes and embeddings come back f32. Windows other than 3x3 take the plain path.
     """
     if nms_kernel != 3:
         return decode_ops.decode_detections(
@@ -243,6 +243,10 @@ def decode_detections_fused(
             nms_kernel=nms_kernel, normalize_boxes=normalize_boxes,
             box_log=box_log, box_multiplier=box_multiplier, stride=stride,
             from_logits=from_logits)
+    if heatmap.dtype not in (torch.float32, torch.bfloat16):
+        # the kernel reads f32 and bf16; other maps (fp16 serving) are
+        # widened to f32 first, as the JAX package's Pallas wrapper does
+        heatmap = heatmap.float()
     scores, labels = peak_class_scores_cuda(heatmap.contiguous(),
                                             from_logits=from_logits)
     topk_scores, indices, topk_labels = decode_ops._topk(

@@ -49,7 +49,7 @@ class Trainer:
         if val_loader is not None:
             raise NotImplementedError(
                 "validation (COCO / MOT metrics) is ported with eval/ "
-                "(ROADMAP Queue 1 item 12)")
+                "(ROADMAP Queue 1 item 4)")
         self.task = task
         self.train_loader = train_loader
         self.max_epochs = max_epochs

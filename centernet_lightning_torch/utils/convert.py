@@ -8,21 +8,32 @@
   - convolution kernels HWIO -> OIHW;
   - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var,
     plus `num_batches_tracked` = 0;
-  - scopes: `heads_<name>` -> `heads.<name>`; `ConvNormAct_<i>` ->
-    `blocks.<i>` (with `Conv_0`/`BatchNorm_0` -> `conv`/`bn`); ResNet
-    `stem_conv`/`stem_bn` -> `conv1`/`bn1`, `layer<s>_block<b>` ->
-    `layer<s>.<b>` (with `Conv_<i>`/`BatchNorm_<i>` -> `conv<i+1>`/`bn<i+1>`
-    and `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`);
-  - DCN: flax counts `DeformableConvBlock_<j>` apart from `ConvNormAct_<i>`.
-    In every ported scope (FPN, GenericHead) the plain blocks are called
-    before the deformable ones, so `DeformableConvBlock_<j>` is
+  - scopes: `heads_<name>` -> `heads.<name>`; `extra_block` keeps its
+    name; `ConvNormAct_<i>` -> `blocks.<i>` (with `Conv_0`/`BatchNorm_0`
+    -> `conv`/`bn`, as inside `DarkConv_<i>` and `ConvBN_<i>`, which are
+    `convs.<i>`); `CSPStage_<i>`, `ResBlock_<i>`, `InvertedResidual_<i>`
+    -> `blocks.<i>`; `SqueezeExcite_0` -> `se` (`Conv_0`/`Conv_1` with
+    bias -> `reduce`/`expand`); `Upsample_<j>` -> `upsamples.<j>` (with
+    `ConvTranspose_0`/`BatchNorm_0` -> `conv`/`bn`); `Fuse_<j>` ->
+    `fuses.<j>` (leaf `fuse_weights`); ResNet `stem_conv`/`stem_bn` ->
+    `conv1`/`bn1`, `layer<s>_block<b>` -> `layer<s>.<b>` (with
+    `Conv_<i>`/`BatchNorm_<i>` -> `conv<i+1>`/`bn<i+1>` and
+    `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`);
+  - kernels: convolutions HWIO -> OIHW (a depthwise (k, k, 1, C) becomes
+    (C, 1, k, k)); a transpose conv's (k, k, in, out), which flax applies
+    unflipped, -> flip(kernel, (0, 1)) as (in, out, k, k), since torch
+    flips it;
+  - DCN and separable blocks: flax counts `DeformableConvBlock_<j>` and
+    `SeparableConvNormAct_<j>` apart from `ConvNormAct_<i>`, and every
+    `blocks` list of the port holds its plain blocks first (SimpleNeck
+    keeps a plan where its calls interleave them), so such a block is
     `blocks.<P + j>`, P being the number of `ConvNormAct_*` beside it.
-    Inside, `Conv_0`/`Conv_1`/`BatchNorm_0` -> `conv_offset`/`conv_mask`/
-    `bn`, and the tap-major `kernel` (k^2 C, O) and `bias` ->
-    `deform.weight` (O, C, k, k) and `deform.bias`.
+    Inside a DCN block, `Conv_0`/`Conv_1`/`BatchNorm_0` ->
+    `conv_offset`/`conv_mask`/`bn`, and the tap-major `kernel` (k^2 C, O)
+    and `bias` -> `deform.weight` (O, C, k, k) and `deform.bias`.
 
-A scope this slice does not port (Fuse, SPP, reid classifier) raises
-KeyError rather than being dropped.
+A scope the port does not have (the reid classifier, the backbones still
+to be ported) raises KeyError rather than being dropped.
 """
 from __future__ import annotations
 
@@ -35,9 +46,22 @@ import torch
 __all__ = ["variables_to_state_dict"]
 
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
-         "mean": "running_mean", "var": "running_var"}
-_DCN_CHILD = {"Conv_0": "conv_offset", "Conv_1": "conv_mask",
-              "BatchNorm_0": "bn"}
+         "mean": "running_mean", "var": "running_var",
+         "fuse_weights": "fuse_weights"}
+# scopes numbered within their parent -> the port's list
+_LISTS = {"ConvNormAct": "blocks", "CSPStage": "blocks", "ResBlock": "blocks",
+          "InvertedResidual": "blocks", "DarkConv": "convs", "ConvBN": "convs",
+          "Upsample": "upsamples", "Fuse": "fuses"}
+# children of a scope class, by flax name
+_CHILDREN = {
+    "DeformableConvBlock": {"Conv_0": "conv_offset", "Conv_1": "conv_mask",
+                            "BatchNorm_0": "bn"},
+    "SqueezeExcite": {"Conv_0": "reduce", "Conv_1": "expand"},
+    "Upsample": {"ConvTranspose_0": "conv", "BatchNorm_0": "bn"},
+    **{cls: {"Conv_0": "conv", "BatchNorm_0": "bn"}
+       for cls in ("ConvNormAct", "DarkConv", "ConvBN")},
+}
+_PLAIN_RE = re.compile(r"ConvNormAct_\d+")
 
 
 def _scope(name: str, parent: str, siblings) -> str:
@@ -45,27 +69,27 @@ def _scope(name: str, parent: str, siblings) -> str:
     subtree holds `siblings`."""
     if name.startswith("heads_"):
         return "heads." + name[len("heads_"):]
-    if name in ("backbone", "neck", "out_conv"):
+    if name in ("backbone", "neck", "out_conv", "extra_block"):
         return name
     if name == "stem_conv":
         return "conv1"
     if name == "stem_bn":
         return "bn1"
+    if name == "SqueezeExcite_0":
+        return "se"
     m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
     if m:
         return f"layer{m.group(1)}.{m.group(2)}"
-    m = re.fullmatch(r"ConvNormAct_(\d+)", name)
-    if m:
-        return f"blocks.{m.group(1)}"
-    m = re.fullmatch(r"DeformableConvBlock_(\d+)", name)
-    if m:
-        plain = sum(1 for s in siblings if re.fullmatch(r"ConvNormAct_\d+", s))
-        return f"blocks.{plain + int(m.group(1))}"
-    if parent.startswith("DeformableConvBlock_") and name in _DCN_CHILD:
-        return _DCN_CHILD[name]
+    parent_cls = parent.rsplit("_", 1)[0]
+    if name in _CHILDREN.get(parent_cls, {}):
+        return _CHILDREN[parent_cls][name]
+    m = re.fullmatch(r"(\w+?)_(\d+)", name)
+    if m and m.group(1) in _LISTS:
+        return f"{_LISTS[m.group(1)]}.{m.group(2)}"
+    if m and m.group(1) in ("DeformableConvBlock", "SeparableConvNormAct"):
+        plain = sum(1 for s in siblings if _PLAIN_RE.fullmatch(s))
+        return f"blocks.{plain + int(m.group(2))}"
     m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", name)
-    if m and parent.startswith("ConvNormAct_") and m.group(2) == "0":
-        return "conv" if m.group(1) == "Conv" else "bn"
     if m and re.fullmatch(r"layer\d+_block\d+", parent):
         i = int(m.group(2)) + 1
         return f"conv{i}" if m.group(1) == "Conv" else f"bn{i}"
@@ -73,7 +97,7 @@ def _scope(name: str, parent: str, siblings) -> str:
         return "downsample.0"
     if name == "downsample_bn":
         return "downsample.1"
-    raise KeyError(f"no port of flax scope {parent}/{name} in this slice")
+    raise KeyError(f"no port of flax scope {parent}/{name}")
 
 
 def _walk(tree: Dict[str, Any], path: Tuple[str, ...] = ()
@@ -103,6 +127,8 @@ def _torch_key(path: Tuple[str, ...], params: Dict[str, Any]) -> str:
 
 
 def _kernel(path: Tuple[str, ...], arr: np.ndarray, params) -> np.ndarray:
+    if arr.ndim == 4 and len(path) > 1 and path[-2].startswith("ConvTranspose"):
+        return arr[::-1, ::-1].transpose(2, 3, 0, 1)        # flip, -> (I, O, k, k)
     if arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)                    # HWIO -> OIHW
     if arr.ndim == 2 and path[-2].startswith("DeformableConvBlock_"):

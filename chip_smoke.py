@@ -79,12 +79,29 @@ with its seconds (`phase_s`); any failure exits non-zero:
      gradient within FUSED_GRAD_TOL (relative L2). Each prints
      train images/s (median epoch after the first), peak memory and a
      profile;
+     then the shipped configs' main paths, each with the launch counts
+     reset just before and read just after: `build_centernet` on
+     configs/centernet.yaml (CSPDarknet-53, FPN-256, heads 256 x 3, 80
+     classes), helmet.yaml (MobileNetV2, separable SimpleNeck
+     256/128/64, 2 classes) and base_resnet34.yaml (ResNet-34, nearest
+     SimpleNeck), and a ResNet-34 BiFPN-256 built from a dict; bf16,
+     seeded weights with BatchNorm statistics from one train-mode pass
+     over 8 images (`calibrate_bn`), the (64, 512, 512, 3) batch through
+     `gather_detection2d`: one peak launch each, and the detections equal
+     to the plain decode of the same head outputs; their images/s (median
+     of E2E_REPS rounds, the configs in turn) and their profiles; then
+     centernet.yaml in fp16, whose heatmap the decode
+     widens to f32 for the kernel: one peak launch, detections equal to
+     the plain decode;
   6. forward parity: the same f32 weights on the card (TF32 off) and on the
-     CPU at batch 2, 512x512, for ResNet-34 FPN-256 and for the DCN model
-     on both DCN engines; the max abs difference of the heatmap and box
-     logits must be within 1e-4 of the logits' largest magnitude;
-  7. train-step parity: one f32 SGD step (TF32 off) of each of those three
-     models at b2, 256^2 on the card and on the CPU from the same weights:
+     CPU at batch 2, 512x512, for ResNet-34 FPN-256, for the DCN model
+     on both DCN engines, and for centernet.yaml, helmet.yaml and the
+     BiFPN model (statistics calibrated on the card); the max abs
+     difference of the heatmap and box logits must be within 1e-4 of the
+     logits' largest magnitude;
+  7. train-step parity: one f32 SGD step (TF32 off) of the flagship, both
+     DCN models and centernet.yaml's model at b2, 256^2 on the card and on
+     the CPU from the same weights:
      losses within 1e-4, every updated tensor within 1e-4 of its largest
      magnitude, the two updates within 2^-5 of each other in L2; two AdamW
      steps, held by their losses (1e-3).
@@ -98,6 +115,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -169,10 +187,87 @@ SGD_PARITY_LR = 1e-4
 SGD_UPDATE_TOL = 2.0 ** -5
 ADAMW_LOSS_RTOL = 1e-3   # the second AdamW step's loss: Adam moves every
 #                          weight by about lr whatever its gradient's size
+# the shipped detection configs served at BATCH x SIZE^2 in bf16: the YAMLs
+# as a user passes them to build_centernet, and the reference's ResNet-34
+# BiFPN, built from a dict; random weights from a seed
+SHIPPED = ("centernet.yaml", "helmet.yaml", "base_resnet34.yaml")
+BIFPN = {"num_classes": 80, "backbone": "resnet34", "neck": "BiFPN",
+         "neck_config": {"out_channels": 256},
+         "head_config": {"width": 256, "depth": 3}}
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def shipped_config(name, dtype="bfloat16"):
+    """The model config of a shipped YAML (from beside this script), or of
+    the BiFPN model, served at SIZE^2 in `dtype` (None: f32)."""
+    from centernet_lightning_torch.train.config import load_config
+
+    if name == "resnet34_bifpn256":
+        model = dict(BIFPN)
+    else:
+        here = os.path.dirname(os.path.abspath(__file__))
+        model = dict(load_config(os.path.join(here, "configs", name))["model"])
+    model.update(image_size=[SIZE, SIZE], num_detections=100)
+    model.pop("compute_dtype", None)
+    if dtype:
+        model["compute_dtype"] = dtype
+    return {"model": model}
+
+
+@torch.no_grad()
+def calibrate_bn(pred, images):
+    """Set every BatchNorm's running statistics to those of one train-mode
+    pass over `images`, as training on data sets them. With unit
+    statistics the seeded CSPDarknet's activations grow past 1e4 (no
+    residual branch starts at zero, unlike the ResNets'), and the exp box
+    decode of configs/centernet.yaml overflows."""
+    norms = [m for m in pred.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in norms:
+        m.momentum = 1.0
+    pred.model.train()
+    try:
+        pred.model(pred.prepare_images(images))
+    finally:
+        pred.model.eval()
+        for m in norms:
+            m.momentum = 0.1
+
+
+def decode_vs_plain(pred, images):
+    """The head outputs of `images`, decoded through the peak kernel and
+    through the plain decode (ops/decode.py) on the same maps, widened to
+    f32 as the fused decode widens an fp16 map: the peak maps must be
+    bitwise equal and the top-k the same (check_same_detections).
+    Returns {peak_maps_equal_plain, max_abs_logit, finite, heatmap_dtype}."""
+    from centernet_lightning_torch.ops import decode as decode_ops
+    from centernet_lightning_torch.ops import peak_decode
+
+    with torch.inference_mode():
+        outs = pred.model(pred.prepare_images(images))
+        heat, box = outs["heatmap"], outs["box_2d"]
+        heat_dtype = str(heat.dtype).replace("torch.", "")
+        if heat.dtype not in (torch.float32, torch.bfloat16):
+            heat = heat.float()
+        a = dict(zip(("flat", "labels_map"),
+                     peak_decode.peak_class_scores_cuda(heat, True)))
+        b = dict(zip(("flat", "labels_map"),
+                     decode_ops.peak_class_scores(heat.float(), from_logits=True)))
+        same = (torch.equal(a["flat"], b["flat"])
+                and torch.equal(a["labels_map"], b["labels_map"]))
+        for out in (a, b):
+            _, out["indices"], out["labels"] = decode_ops._topk(
+                out["flat"], out["labels_map"], 100, True)
+            out["boxes"] = decode_ops.gather_and_decode_boxes(
+                box, out["indices"], stride=pred.task.stride)
+        check_same_detections(a, b)
+        return {"peak_maps_equal_plain": same,
+                "max_abs_logit": heat.float().abs().max().item(),
+                "finite": bool(torch.isfinite(heat).all()
+                               and torch.isfinite(box).all()),
+                "heatmap_dtype": heat_dtype}
 
 
 def card_line() -> str:
@@ -1336,6 +1431,84 @@ def main() -> int:
     del dcn_batches, dcn_start
     torch.cuda.empty_cache()
 
+    # ---- 5c. main paths: the shipped configs -----------------------------
+    # each built from its YAML (or dict) with build_centernet on the card,
+    # bf16, seeded weights, one uint8 BATCH x SIZE^2 batch through
+    # gather_detection2d with the launch counts reset just before: one peak
+    # launch, and the decode against the plain decode of the same outputs
+    shipped = {}
+    for name in SHIPPED + ("resnet34_bifpn256",):
+        t_phase = time.perf_counter()
+        spred = build_centernet(shipped_config(name), seed=0)
+        calibrate_bn(spred, images[:8])
+        reset_launches()
+        t0 = time.perf_counter()
+        dets = spred.gather_detection2d(images)
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        shapes_ok = (dets["bboxes"].shape == (BATCH, 100, 4)
+                     and dets["scores"].shape == (BATCH, 100))
+        finite = all(bool(np.isfinite(dets[k]).all()) for k in ("bboxes", "scores"))
+        n_cls = spred.task.num_classes
+        labels_ok = bool(((dets["labels"] >= 0) & (dets["labels"] < n_cls)).all())
+        plain = decode_vs_plain(spred, images)
+        model = spred.model
+        emit({"phase": "config_main_path", "config": name,
+              "backbone": type(model.backbone).__name__,
+              "neck": type(model.neck).__name__, "classes": n_cls,
+              "batch": BATCH, "image_size": SIZE, "dtype": "bfloat16",
+              "params_M": sum(p.numel() for p in model.parameters()) / 1e6,
+              "first_call_s": first_s, "launches": launches,
+              "shapes_ok": shapes_ok, "dets_finite": finite,
+              "labels_ok": labels_ok, **plain, "decode_equal_plain": True,
+              "phase_s": time.perf_counter() - t_phase})
+        if not (shapes_ok and finite and plain["finite"] and labels_ok
+                and plain["peak_maps_equal_plain"]):
+            raise AssertionError(f"{name} main path output check failed")
+        if launches["peak_class_scores_cuda"] != 1:
+            raise AssertionError(f"{name}: expected one peak launch: {launches}")
+        shipped[name] = spred
+
+    t_phase = time.perf_counter()
+    dev_images = torch.from_numpy(images).cuda()
+    shipped_times = repeated_ms({name: functools.partial(p.detect, dev_images)
+                                 for name, p in shipped.items()})
+    for t in shipped_times.values():
+        t["images_per_s"] = BATCH / t["median_ms"] * 1e3
+    emit({"phase": "config_times", "batch": BATCH, "dtype": "bfloat16",
+          "image_size": SIZE, "card": card, "configs": shipped_times,
+          "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_s": time.perf_counter() - t_phase})
+    for name, spred in shipped.items():
+        t_phase = time.perf_counter()
+        emit({"phase": "config_profile", "config": name, "card": card,
+              **device_breakdown(functools.partial(spred.detect, dev_images),
+                                 iters=3, wall_ms=shipped_times[name]["median_ms"]),
+              "phase_s": time.perf_counter() - t_phase})
+    del shipped, spred, model
+    torch.cuda.empty_cache()
+
+    # fp16 serving: the decode widens the fp16 heatmap for the peak kernel
+    t_phase = time.perf_counter()
+    hpred = build_centernet(shipped_config("centernet.yaml", "float16"), seed=0)
+    calibrate_bn(hpred, images[:8])
+    reset_launches()
+    dets = hpred.gather_detection2d(images)
+    launches = read_launches()
+    plain = decode_vs_plain(hpred, images)
+    finite = all(bool(np.isfinite(dets[k]).all()) for k in ("bboxes", "scores"))
+    emit({"phase": "fp16_main_path", "config": "centernet.yaml", "batch": BATCH,
+          "image_size": SIZE, "dtype": "float16", "launches": launches,
+          "dets_finite": finite, **plain, "decode_equal_plain": True,
+          "phase_s": time.perf_counter() - t_phase})
+    if not (finite and plain["finite"] and plain["peak_maps_equal_plain"]
+            and plain["heatmap_dtype"] == "float16"):
+        raise AssertionError("fp16 main path output check failed")
+    if launches["peak_class_scores_cuda"] != 1:
+        raise AssertionError(f"fp16: expected one peak launch: {launches}")
+    del hpred, dev_images
+    torch.cuda.empty_cache()
+
     # ---- 6. forward parity on the card ---------------------------------
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -1383,10 +1556,28 @@ def main() -> int:
                                      f"{key}: {p}")
         del cpu, gpu
 
+    for name in ("centernet.yaml", "helmet.yaml", "resnet34_bifpn256"):
+        t_phase = time.perf_counter()
+        f32 = shipped_config(name, dtype=None)
+        cpu = build_centernet(f32, seed=1, device="cpu")
+        gpu = build_centernet(f32, seed=1)
+        calibrate_bn(gpu, images[2:6])
+        cpu.model.load_state_dict(gpu.model.state_dict())
+        parity = forward_parity(cpu, gpu, small)
+        emit({"phase": "forward_parity", "model": name, "batch": 2,
+              "image_size": SIZE, "dtype": "float32", "tf32": False, **parity,
+              "phase_s": time.perf_counter() - t_phase})
+        for key, p in parity.items():
+            if not p["max_abs_diff"] <= p["tolerance"]:
+                raise AssertionError(f"{name} forward parity failed for {key}: {p}")
+        del cpu, gpu
+
     # ---- 7. train-step parity on the card (TF32 still off) -----------------
     small_batch = detection_batches(1, 2, TRAIN_PARITY_SIZE, 80, "cpu", 9)[0]
     for name, pcfg, prepare in (
             ("resnet34_fpn256", f32_cfg, None),
+            ("centernet.yaml", shipped_config("centernet.yaml", dtype=None),
+             lambda p: calibrate_bn(p, small_batch["image"].cuda())),
             ("resnet18_fpn128_dcn_fast_d1", dcn_config("dcn_fast_d1", dtype=None),
              lambda p: draw_offset_weights(
                  p.model, preprocess(small_batch["image"].cuda()),

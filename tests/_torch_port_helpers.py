@@ -4,6 +4,7 @@ Inputs and weights are made with seeded numpy and handed to both packages;
 JAX runs on the CPU and the port with device="cpu".
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -112,6 +113,30 @@ def assert_detections_match(ref, got, rtol=1e-6, atol=1e-6, min_distinct=1):
     assert distinct >= min_distinct, "comparison had no untied entries"
 
 
+NARROW_DARKNET = {"stage_blocks": (1, 2, 1, 1, 1),
+                  "stage_filters": (16, 24, 32, 40, 48)}
+
+
+def backbone_parity(j, t, x, rng, tol=dict(rtol=1e-4, atol=1e-4)):
+    """A flax backbone and the port's on the same input and converted
+    weights (BatchNorm perturbed): the pyramids must agree within `tol`.
+    Returns the port's pyramid."""
+    v = perturb_batch_norm(
+        to_numpy_tree(j.init(jax.random.PRNGKey(0), jnp.asarray(x))), rng)
+    t.load_state_dict(scoped_state_dict(v, "backbone", "backbone."),
+                      strict=True)
+    t.eval()
+    refs = j.apply(v, jnp.asarray(x))
+    with torch.no_grad():
+        gots = t(nchw(x))
+    assert list(t.out_channels) == list(j.out_channels)
+    assert len(gots) == len(refs) == 4
+    for ref, got in zip(refs, gots):
+        assert got.shape[1] == np.shape(ref)[-1]
+        np.testing.assert_allclose(nhwc(got), np.asarray(ref), **tol)
+    return gots
+
+
 def random_flax_variables(task, rng, image_size=(32, 32)):
     """Seeded variables in the shapes of a JAX task's model, traced rather
     than run: convolution kernels he-normal over their fan-in, biases
@@ -184,10 +209,11 @@ def _calibrate_dcn(variables, offset_scale=0.03, mask_scale=0.01):
 
 
 def train_step_parity(optimizer: str, frozen_stages: int, steps: int = 3,
-                      conv_type: str = "normal"):
+                      conv_type: str = "normal", model=None):
     """Three train steps of the JAX package and of the port from the same
     weights on the same batches (see test_torch_port_train.py); `conv_type`
-    sets the FPN's merge blocks (the DCN engines)."""
+    sets the FPN's merge blocks (the DCN engines) and `model` replaces
+    entries of the task's config (another backbone)."""
     import jax.numpy as jnp
 
     from centernet_lightning_tpu.models.centernet import CenterNet as JCenterNet
@@ -201,6 +227,7 @@ def train_step_parity(optimizer: str, frozen_stages: int, steps: int = 3,
 
     cfg = dict(TRAIN_CFG, backbone_config={"frozen_stages": frozen_stages},
                neck_config=dict(TRAIN_CFG["neck_config"], conv_type=conv_type))
+    cfg.update(model or {})
     opt = dict(TRAIN_OPT[optimizer], weight_decay=1e-3, norm_weight_decay=0.0,
                warmup_epochs=1, warmup_decay=0.1, max_epochs=3,
                steps_per_epoch=2, frozen_stages=frozen_stages)

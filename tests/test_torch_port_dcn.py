@@ -327,8 +327,9 @@ def test_registry_and_init():
         want = j_layers.CONV_BLOCKS[name](6, 3)
         assert blk.max_displacement == want.max_displacement, name
         assert blk.sampler == ("fused" if want.sampler == "fused" else "auto")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_layers.get_conv_block("separable")
+    sep = t_layers.get_conv_block("separable")(4, 6, 3)
+    assert isinstance(sep, t_layers.SeparableConvNormAct)
+    assert sep.blocks[0].conv.groups == 4
     with pytest.raises(KeyError):
         t_layers.get_conv_block("dcn_fast_d9")
     cfg = {"num_classes": 3, "backbone": "resnet18",

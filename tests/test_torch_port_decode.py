@@ -233,3 +233,43 @@ def test_gather_at_indices_parity():
     ref = np.asarray(J.gather_at_indices(jnp.asarray(feat), jnp.asarray(idx)))
     got = T.gather_at_indices(torch.from_numpy(feat), torch.from_numpy(idx))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_fused_decode_widens_fp16_maps():
+    """An fp16 heatmap (fp16 serving) goes through the fused decode: it is
+    widened to f32 for the kernel, as the JAX package's Pallas wrapper
+    widens maps narrower than f32; the wrapper itself still refuses fp16."""
+    rng = np.random.default_rng(6)
+    heat = torch.from_numpy(rng.normal(0, 3, (2, 12, 14, 5)).astype(np.float32)).half()
+    box = torch.from_numpy(rng.normal(size=(2, 12, 14, 4)).astype(np.float32)).half()
+    kw = dict(num_detections=30, from_logits=True, box_log=True,
+              box_multiplier=4.0)
+    got = TP.decode_detections_fused(heat, box, **kw)
+    ref = J.decode_detections(jnp.asarray(heat.float().numpy()),
+                              jnp.asarray(box.float().numpy()), **kw)
+    assert got["scores"].dtype == torch.float32
+    assert_detections_match({k: np.asarray(v) for k, v in ref.items()},
+                            {k: v.numpy() for k, v in got.items()},
+                            min_distinct=10)
+
+
+def test_box_decode_clamp_tie_gradient():
+    """At an offset of exactly 0 the decode's clamp passes half the
+    gradient, as jnp.clip does (ops/decode.py, JAX decode.py:144)."""
+    box = np.zeros((1, 2, 3, 4), np.float32)
+    box[0, 0, 1] = [0.5, -1.0, 2.0, 0.0]
+    idx = np.array([[0, 1, 4]], np.int32)
+    weights = np.random.default_rng(7).normal(size=(1, 3, 4)).astype(np.float32)
+
+    def jf(b):
+        return jnp.sum(J.gather_and_decode_boxes(b, jnp.asarray(idx),
+                                                 box_multiplier=2.0) * weights)
+
+    ref = np.asarray(jax.grad(jf)(jnp.asarray(box)))
+    tb = torch.from_numpy(box).requires_grad_()
+    (T.gather_and_decode_boxes(tb, torch.from_numpy(idx), box_multiplier=2.0)
+     * torch.from_numpy(weights)).sum().backward()
+    np.testing.assert_allclose(tb.grad.numpy(), ref, rtol=1e-6, atol=0)
+    # y2 = (cy + 2 * offset) * 4 at the tie offset 0: half of 8 * weight
+    np.testing.assert_allclose(ref[0, 0, 1, 3], 0.5 * 8 * weights[0, 1, 3],
+                               rtol=1e-6)

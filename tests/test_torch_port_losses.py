@@ -209,3 +209,25 @@ def test_compute_loss_matches_jax(cfg):
     got["total"].backward()
     np.testing.assert_allclose(th.grad.numpy(), np.asarray(jgh), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(jgb), rtol=1e-5, atol=1e-7)
+
+
+def test_box_intersection_clamp_tie_gradient():
+    """At exactly 0 the intersection's clip (JAX boxes.py:74) passes half
+    the gradient in the JAX package; the port matches (torch.maximum, not
+    clamp)."""
+    rng = np.random.default_rng(8)
+    a = _xyxy(rng, (6,))
+    b = a.copy()
+    b[:3, 0] = a[:3, 2]                 # touching: x2 - x1 == 0 exactly
+    b[3:, 1] = a[3:, 3]                 # y2 - y1 == 0 exactly
+
+    def j(x, y):
+        inter, union = j_boxes.box_inter_union(x, y)
+        return jnp.sum(inter * 1.5 + union)
+
+    ref = jax.grad(j, argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (a, b)]
+    inter, union = t_boxes.box_inter_union(*leaves)
+    (inter * 1.5 + union).sum().backward()
+    for leaf, r in zip(leaves, ref):
+        _close(leaf.grad, r, rtol=1e-6, atol=1e-7)

@@ -191,7 +191,7 @@ def test_checkpoint_serves_and_restores(tmp_path):
 
 def test_trainer_options():
     batches = _batches(3)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         _trainer(batches, val_loader=batches)
     assert _trainer(batches, val_check_interval=0.5).val_check_steps == 1
     assert _trainer(batches, val_check_interval=2).val_check_steps == 2
