@@ -3,30 +3,40 @@
     model = build_centernet({"model": {...}})                 # or a YAML path
     dets  = model.gather_detection2d(images)                  # numpy dict
     out   = model.inference_detection(img_dir)                # folder
+    out   = model.inference_tracking(img_dir, save_dir=...)   # MOT tracking
+    for step in model.track_stream(batches, pipeline_depth=2): ...
 
 The predictor runs on `device` ("cuda" unless the caller says otherwise;
 there is no fallback to the CPU). Images are NHWC, uint8 raw or already
-normalised float; uint8 batches are normalised on the device. On CUDA the
-decode's peak stage is the hand-written kernel (ops/peak_decode.py).
+normalised float; uint8 batches go to the card from pinned memory without
+waiting for it and are normalised there. On CUDA the decode's peak stage
+is the hand-written kernel (ops/peak_decode.py). Tracking (a model with a
+`reid_config`) runs the card's forward and decode and the host's
+`Tracker` (models/tracker.py), pipelined so that the two overlap.
 """
 from __future__ import annotations
 
+import collections
 import os
-from typing import Any, Dict, Optional, Sequence, Union
+import queue
+import threading
+from typing import Any, Dict, Iterable, Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from .data.inference import InferenceDataset
+from .eval.utils import write_mot_results
 from .models.centernet import CenterNet
+from .models.tracker import Tracker
 from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
 from .train.checkpoint import load_checkpoint
 from .train.config import load_config, normalize_config
+from .utils.viz import draw_boxes
 
 __all__ = ["CenterNetPredictor", "build_centernet"]
 
-_TRACKING = "tracking is ported with the tracking slice (ROADMAP Queue 1 item 5)"
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -40,6 +50,23 @@ def _extract_norm(data_cfg: Optional[Dict]) -> tuple:
                 args.get("std", IMAGENET_STD)
             )
     return tuple(IMAGENET_MEAN), tuple(IMAGENET_STD)
+
+
+def _host_copies(out: Dict[str, torch.Tensor]):
+    """Start the copies of the decode's outputs to the host: (host tensors,
+    event). On CUDA the copies go into pinned memory without blocking, on
+    the current stream, and the event marks their end; the host tensors
+    are valid once it has passed. On the CPU there is nothing to copy
+    (event None)."""
+    if not any(t.is_cuda for t in out.values()):
+        return out, None
+    host = {}
+    for k, t in out.items():
+        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host[k].copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 def _to_numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -77,16 +104,29 @@ class CenterNetPredictor:
         self.image_size = tuple(image_size)
         self.mean = tuple(mean)
         self.std = tuple(std)
+        # on the device once, so preprocessing a batch makes no H2D copy
+        self._norm = tuple(torch.tensor(v, dtype=self._dtype()).to(self.device)
+                           for v in (self.mean, self.std))
 
     def _dtype(self) -> torch.dtype:
         return self.compute_dtype or torch.float32
 
+    def upload(self, images) -> torch.Tensor:
+        """`images` (numpy or a tensor) on the device. From the host, a
+        CUDA upload goes through pinned memory without blocking on the
+        current stream, so it returns before the card has finished the work
+        queued before it (a pageable copy would wait for it)."""
+        x = torch.as_tensor(images)
+        if self.device.type == "cuda" and x.device.type == "cpu":
+            return x.pin_memory().to(self.device, non_blocking=True)
+        return x.to(self.device)
+
     def prepare_images(self, images) -> torch.Tensor:
         """The model's input: an NHWC batch on the device, uint8 normalised
         (ops/preprocess.py), float cast to the compute dtype."""
-        x = torch.as_tensor(images).to(self.device)
+        x = self.upload(images)
         if x.dtype == torch.uint8:
-            return preprocess(x, mean=self.mean, std=self.std,
+            return preprocess(x, mean=self._norm[0], std=self._norm[1],
                               dtype=self._dtype())
         return x.to(self._dtype())
 
@@ -183,14 +223,209 @@ class CenterNetPredictor:
             "image_paths": paths,
         }
 
-    def gather_tracking2d(self, *args, **kwargs):
-        raise NotImplementedError(_TRACKING)
+    def gather_tracking2d(self, images, num_detections: Optional[int] = None,
+                          nms_kernel: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Tracking decode -> numpy {bboxes (normalised xyxy), labels,
+        scores, embeddings (f32)}."""
+        return self.gather_detection2d(
+            images, num_detections=num_detections, nms_kernel=nms_kernel,
+            normalize_boxes=True)
 
-    def track_stream(self, *args, **kwargs):
-        raise NotImplementedError(_TRACKING)
+    def _gather_tracking_device(self, images, num_detections: Optional[int] = None,
+                                nms_kernel: Optional[int] = None
+                                ) -> Dict[str, torch.Tensor]:
+        """gather_tracking2d leaving the results on the device. Nothing in
+        it waits for the card (a pinned upload, no value read back), so it
+        returns while the card works and the caller overlaps host work."""
+        return self.detect(images, num_detections=num_detections,
+                           nms_kernel=nms_kernel, normalize_boxes=True)
 
-    def inference_tracking(self, *args, **kwargs):
-        raise NotImplementedError(_TRACKING)
+    def track_stream(self, batches: Iterable, tracker_config: Optional[Dict] = None,
+                     pipeline_depth: int = 1, **tracker_kwargs) -> Iterator[Dict]:
+        """Pipelined tracking over an iterator of `(frames, n_valid)`
+        pairs: `frames` a uint8 or float (B, H, W, 3) batch at the model's
+        image size, of which the first `n_valid` are real (the rest pads a
+        fixed batch shape).
+
+        Yields one dict per valid frame, in order: {'bboxes': [xyxy
+        normalised], 'track_ids': [int], 'num_detections': int} (the active
+        tracks after that frame's association; num_detections counts the
+        detections at or above the tracker's threshold that entered it).
+
+        The card's forward and decode of batch i+1, and the copy of its
+        top-k arrays to the host, are queued before the host associates
+        batch i; the host then waits for batch i's copies alone (an event),
+        not for the card's queue. pipeline_depth 1 queues on the caller's
+        thread. At 2 or more a background thread keeps up to
+        `pipeline_depth` batches in flight: it uploads each batch from
+        pinned memory on a stream of its own, and the compute stream waits
+        for that upload's event before the forward reads the frames.
+        """
+        if self.task.reid_config is None:
+            raise ValueError("tracking needs a model with a reid head "
+                             "(reid_config)")
+        cfg = dict(tracker_config or {})
+        cfg.update(tracker_kwargs)
+        tracker = Tracker(model=self.gather_tracking2d, **cfg)
+        kw = dict(num_detections=cfg.get("num_detections", tracker.num_detections),
+                  nms_kernel=cfg.get("nms_kernel"))
+
+        if pipeline_depth >= 2:
+            pending = self._threaded_dispatch(batches, pipeline_depth, **kw)
+        else:
+            pending = self._inline_dispatch(batches, **kw)
+        for n, host, event in pending:
+            if event is not None:
+                event.synchronize()
+            boxes, labels, scores, embeddings = (
+                host[k].numpy() for k in ("boxes", "labels", "scores",
+                                          "embeddings"))
+            for i in range(n):
+                tracker.update(boxes[i], labels[i], scores[i], embeddings[i])
+                tracker.frame += 1
+                yield {
+                    "bboxes": [t.bbox for t in tracker.tracks if t.active],
+                    "track_ids": [t.track_id for t in tracker.tracks
+                                  if t.active],
+                    "num_detections": int(
+                        (scores[i] >= tracker.detection_threshold).sum()),
+                }
+
+    def _dispatch(self, frames, **gather_kwargs):
+        """Queue one batch's forward, decode and copies to the host:
+        (host tensors, event)."""
+        with torch.inference_mode():
+            return _host_copies(self._gather_tracking_device(frames,
+                                                             **gather_kwargs))
+
+    def _inline_dispatch(self, batches: Iterable, **gather_kwargs):
+        """(n_valid, host tensors, event) for each batch, the next batch
+        queued before the previous one is handed on."""
+        pending = None
+        for frames, n in batches:
+            queued = (n, *self._dispatch(frames, **gather_kwargs))
+            if pending is not None:
+                yield pending
+            pending = queued
+        if pending is not None:
+            yield pending
+
+    def _threaded_dispatch(self, batches: Iterable, depth: int, **gather_kwargs):
+        """Upload and queue batches on a background thread, up to `depth`
+        in flight; yields (n_valid, host tensors, event) in input order. An
+        exception on the thread is raised again here."""
+        q: "queue.Queue" = queue.Queue(maxsize=max(depth - 1, 1))
+        stop = threading.Event()
+        end = object()
+        cuda = self.device.type == "cuda"
+        compute = torch.cuda.current_stream(self.device) if cuda else None
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                upload = torch.cuda.Stream(self.device) if cuda else None
+                for frames, n in batches:
+                    if stop.is_set():
+                        return
+                    if cuda:
+                        with torch.cuda.stream(upload):
+                            frames = self.upload(frames)
+                        compute.wait_stream(upload)
+                        # allocated on the upload stream, read on compute
+                        frames.record_stream(compute)
+                        with torch.cuda.stream(compute):
+                            host, event = self._dispatch(frames, **gather_kwargs)
+                    else:
+                        host, event = self._dispatch(frames, **gather_kwargs)
+                    if not put((n, host, event)):
+                        return
+            except BaseException as exc:  # raised again on the consumer
+                put(exc)
+                return
+            put(end)
+
+        thread = threading.Thread(target=worker, daemon=True,
+                                  name="track_stream_dispatch")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            thread.join(timeout=60)
+
+    def inference_tracking(self, img_dir: str, batch_size: int = 4,
+                           save_dir: Optional[str] = None,
+                           save_results: bool = False,
+                           save_images: bool = False,
+                           tracker_config: Optional[Dict] = None,
+                           **tracker_kwargs) -> Dict[str, list]:
+        """Track a folder of frames in file-name order. Returns per-frame
+        {'bboxes', 'track_ids'}; with `save_dir`, writes MOT-format
+        `tracking_results.txt` (save_results) and annotated frames under
+        `images/` (save_images)."""
+        ds = InferenceDataset(img_dir, resize=self.image_size)
+        results_path = images_dir = None
+        if save_dir is not None:
+            os.makedirs(save_dir, exist_ok=True)
+            if save_results:
+                results_path = os.path.join(save_dir, "tracking_results.txt")
+                if os.path.exists(results_path):
+                    os.remove(results_path)
+            if save_images:
+                images_dir = os.path.join(save_dir, "images")
+                os.makedirs(images_dir, exist_ok=True)
+
+        # a frame's items are loaded before track_stream yields it; the
+        # stream holds one batch in flight, so at most two batches wait here
+        loaded_items = collections.deque()
+
+        def batch_iter():
+            for start in range(0, len(ds), batch_size):
+                items = [ds[i] for i in
+                         range(start, min(start + batch_size, len(ds)))]
+                loaded_items.extend(items)
+                batch = np.stack([x["image"] for x in items])
+                if len(items) < batch_size:
+                    pad = np.zeros((batch_size - len(items), *batch.shape[1:]),
+                                   batch.dtype)
+                    batch = np.concatenate([batch, pad])
+                yield batch, len(items)
+
+        out = {"bboxes": [], "track_ids": []}
+        stream = self.track_stream(batch_iter(), tracker_config=tracker_config,
+                                   **tracker_kwargs)
+        for frame, step in enumerate(stream):
+            item = loaded_items.popleft()
+            out["bboxes"].append(step["bboxes"])
+            out["track_ids"].append(step["track_ids"])
+            if results_path:
+                write_mot_results(
+                    results_path, [step["bboxes"]], [step["track_ids"]],
+                    img_width=item["original_width"],
+                    img_height=item["original_height"], start_frame=frame)
+            if images_dir:
+                import cv2
+
+                annotated = draw_boxes(item["image"], step["bboxes"],
+                                       labels=step["track_ids"],
+                                       normalized_boxes=True)
+                cv2.imwrite(os.path.join(images_dir, f"{frame:06d}.jpg"),
+                            cv2.cvtColor(annotated, cv2.COLOR_RGB2BGR))
+        return out
 
     def quantize(self, *args, **kwargs):
         raise NotImplementedError(

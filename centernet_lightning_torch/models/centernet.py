@@ -87,7 +87,8 @@ class CenterNet:
 
     def init(self, generator: torch.Generator) -> None:
         """Draw the model's weights afresh from `generator` (the JAX
-        package's initialisers; see models/meta.py:init_weights), then load
+        package's initialisers; see models/meta.py:init_weights), the ReID
+        head and classifier of a `reid_config` included, then load
         `pretrained_backbone` when it names a file."""
         init_weights(self.model, generator)
         if self.pretrained_backbone:

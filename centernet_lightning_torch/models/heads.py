@@ -1,7 +1,10 @@
-"""Output heads (port of models/heads.py: GenericHead).
+"""Output heads (port of models/heads.py: GenericHead, ReIDClassifier).
 
 `blocks.{i}` is flax `ConvNormAct_{i}` (or `DeformableConvBlock_{i}` for a
-DCN `block`) and `out_conv` is flax `out_conv`.
+DCN `block`) and `out_conv` is flax `out_conv`. FairMOT's ReID head is a
+GenericHead of emb_dim channels (models/meta.py builds it);
+ReIDClassifier's `fc1`, `bn`, `fc2` are flax `Dense_0`, `BatchNorm_0`,
+`Dense_1`.
 """
 from __future__ import annotations
 
@@ -10,9 +13,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import get_conv_block
+from .layers import BN_EPS, BN_MOMENTUM, BatchNorm1d, get_conv_block
 
-__all__ = ["GenericHead"]
+__all__ = ["GenericHead", "ReIDClassifier"]
 
 
 class GenericHead(nn.Module):
@@ -35,3 +38,18 @@ class GenericHead(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return self.out_conv(x)
+
+
+class ReIDClassifier(nn.Module):
+    """The train-only identity classifier over (M, emb_dim) gathered
+    embeddings: Linear (no bias) -> BatchNorm over the M rows (flax's
+    statistics) -> ReLU -> Linear to `max_track_ids` logits."""
+
+    def __init__(self, emb_dim: int, max_track_ids: int):
+        super().__init__()
+        self.fc1 = nn.Linear(emb_dim, emb_dim, bias=False)
+        self.bn = BatchNorm1d(emb_dim, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.fc2 = nn.Linear(emb_dim, max_track_ids)
+
+    def forward(self, embeddings: torch.Tensor) -> torch.Tensor:
+        return self.fc2(torch.relu(self.bn(self.fc1(embeddings))))

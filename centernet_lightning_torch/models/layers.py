@@ -24,7 +24,7 @@ from torch import nn
 from ..ops import dcn as dcn_ops
 from ..ops import dcn_fused, dcn_sample
 
-__all__ = ["BatchNorm2d", "ConvNormAct", "SeparableConvNormAct",
+__all__ = ["BatchNorm1d", "BatchNorm2d", "ConvNormAct", "SeparableConvNormAct",
            "DeformableConvBlock", "DeformWeight", "Upsample", "Downsample",
            "Fuse", "SPP", "SameConv2d", "CONV_BLOCKS", "get_conv_block",
            "batch_norm", "same_pads", "bilinear_kernel"]
@@ -33,8 +33,8 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """`nn.BatchNorm2d` with flax's train-mode statistics.
+class _FlaxStatistics:
+    """flax's train-mode statistics for a torch BatchNorm class.
 
     Train mode normalises with the batch mean and biased variance, as
     torch does, and moves the running statistics toward the same two
@@ -59,6 +59,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+
+class BatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):
+    """`nn.BatchNorm2d` over (N, C, H, W) with flax's statistics."""
+
+
+class BatchNorm1d(_FlaxStatistics, nn.BatchNorm1d):
+    """`nn.BatchNorm1d` over (M, C) rows with flax's statistics: flax
+    `BatchNorm` on a (M, C) input, as the ReID classifier has it."""
 
 
 def batch_norm(channels: int, eps: float = BN_EPS) -> BatchNorm2d:

@@ -17,7 +17,7 @@ from torch import nn
 from .backbones import build_backbone
 from .backbones.mobilenet import SqueezeExcite
 from .backbones.resnet import BasicBlock, Bottleneck
-from .heads import GenericHead
+from .heads import GenericHead, ReIDClassifier
 from .layers import SPP, DeformableConvBlock, Fuse, Upsample, bilinear_kernel
 from .necks import build_neck
 
@@ -25,19 +25,23 @@ __all__ = ["GenericModel", "create_model", "init_weights"]
 
 
 class GenericModel(nn.Module):
-    """State-dict keys start with `backbone.`, `neck.`, `heads.<name>.`
-    and `extra_block.`, the layout the JAX package's
+    """State-dict keys start with `backbone.`, `neck.`, `heads.<name>.`,
+    `extra_block.` and `classifier.`, the layout the JAX package's
     `torch_convert._split_by_prefix` reads. `extra_block` (an SPP, or
-    None) runs on the coarsest backbone map before the neck."""
+    None) runs on the coarsest backbone map before the neck; `classifier`
+    (a ReIDClassifier, or None) is FairMOT's train-only identity
+    classifier, which `forward` does not run."""
 
     def __init__(self, backbone: nn.Module, neck: nn.Module,
                  heads: Dict[str, nn.Module],
-                 extra_block: Optional[nn.Module] = None):
+                 extra_block: Optional[nn.Module] = None,
+                 classifier: Optional[nn.Module] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.heads = nn.ModuleDict(heads)
         self.extra_block = extra_block
+        self.classifier = classifier
 
     def _features(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -53,6 +57,26 @@ class GenericModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self._heads(self.neck(self._features(x)))
+
+    def classify_embeddings(self, embeddings: torch.Tensor) -> torch.Tensor:
+        """ReID identity logits (M, max_track_ids) of (M, emb_dim)
+        embeddings."""
+        if self.classifier is None:
+            raise ValueError("the model has no ReID classifier (reid_config)")
+        return self.classifier(embeddings)
+
+    def forward_with_classifier(self, x: torch.Tensor, indices: torch.Tensor
+                                ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The forward, the ReID embeddings gathered at (N, K) flat indices
+        y*W + x, and their identity logits (N*K, max_track_ids), in one
+        pass (batch statistics of the backbone and the classifier move
+        together in train mode)."""
+        from ..ops.decode import gather_at_indices
+
+        out = self(x)
+        emb = gather_at_indices(out["reid"], indices)      # (N, K, E)
+        n, k, e = emb.shape
+        return out, self.classify_embeddings(emb.reshape(n * k, e))
 
     def multilevel_forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         """Every head on every level of the neck's pyramid, finest first;
@@ -76,11 +100,11 @@ def create_model(
 ) -> Tuple[GenericModel, int]:
     """Build the detection model. Returns (model, stride), with stride =
     backbone.stride // neck.stride. The heatmap head's bias is
-    log(p / (1 - p)) for the prior p; the box head has 4 channels."""
-    if reid_config is not None:
-        raise NotImplementedError(
-            "reid heads are ported with the tracking slice "
-            "(ROADMAP Queue 1 item 5)")
+    log(p / (1 - p)) for the prior p; the box head has 4 channels.
+    `reid_config` adds FairMOT's embedding head `reid` (emb_dim channels,
+    width 256 and depth 1 unless it says otherwise; its `loss_weight` and
+    `loss_function` belong to the task) and the identity classifier over
+    `max_track_ids`."""
     head_config = dict(head_config or {})
     bb = build_backbone(backbone, in_channels=input_channels,
                         **dict(backbone_config or {}))
@@ -108,7 +132,19 @@ def create_model(
         "box_2d": GenericHead(feat, 4, init_bias=box_init_bias,
                               **head_config),
     }
-    return GenericModel(bb, nk, heads, extra_block=extra_block), stride
+    classifier = None
+    if reid_config is not None:
+        rc = dict(reid_config)
+        max_track_ids = rc.pop("max_track_ids", 1000)
+        emb_dim = rc.pop("emb_dim", 64)
+        rc.setdefault("width", 256)
+        rc.setdefault("depth", 1)
+        rc.pop("loss_weight", None)
+        rc.pop("loss_function", None)  # the task's (FairMOT: ce | triplet)
+        heads["reid"] = GenericHead(feat, emb_dim, **rc)
+        classifier = ReIDClassifier(emb_dim, max_track_ids)
+    return GenericModel(bb, nk, heads, extra_block=extra_block,
+                        classifier=classifier), stride
 
 
 def _trunc_normal_fan_in(weight: torch.Tensor, scale: float,
@@ -127,7 +163,8 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
     convolutions, lecun_normal for the residual projections, the head
     output convolutions and the squeeze-excite convolutions (zero biases),
     unit/zero BatchNorm with the last BN of each residual block zeroed,
-    each head's constant output bias; a DCN block's offset and mask
+    each head's constant output bias; linear layers lecun_normal with zero
+    biases (flax Dense); a DCN block's offset and mask
     convolutions are zero and its deformable kernel he_normal over fan-in
     k^2 C; a transpose conv is the bilinear kernel, or he_normal over
     fan-in k^2 C_in; fusion weights are ones. Same distributions, not the
@@ -138,7 +175,11 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
             _trunc_normal_fan_in(mod.weight, 1.0 if plain else 2.0, generator)
             if mod.bias is not None:
                 mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
+        elif isinstance(mod, nn.Linear):
+            _trunc_normal_fan_in(mod.weight, 1.0, generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.BatchNorm1d, nn.BatchNorm2d)):
             mod.reset_parameters()
     for mod in model.modules():
         if isinstance(mod, BasicBlock):

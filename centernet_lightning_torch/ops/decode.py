@@ -127,11 +127,11 @@ def gather_and_decode_boxes(
     offsets = offsets * box_multiplier
     offsets = torch.maximum(offsets, torch.zeros_like(offsets))
 
-    boxes = torch.stack([cx - offsets[..., 0], cy - offsets[..., 1],
-                         cx + offsets[..., 2], cy + offsets[..., 3]], dim=-1)
-    if normalize_boxes:
-        return boxes / boxes.new_tensor([w, h, w, h])
-    return boxes * stride
+    x1, y1 = cx - offsets[..., 0], cy - offsets[..., 1]
+    x2, y2 = cx + offsets[..., 2], cy + offsets[..., 3]
+    if normalize_boxes:   # Python scalars: no H2D copy, which would sync
+        return torch.stack([x1 / w, y1 / h, x2 / w, y2 / h], dim=-1)
+    return torch.stack([x1, y1, x2, y2], dim=-1) * stride
 
 
 def gather_at_indices(features: torch.Tensor,

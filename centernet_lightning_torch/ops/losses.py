@@ -1,5 +1,4 @@
-"""Detection losses (port of ops/losses.py, without the ReID losses, which
-come with the tracking slice).
+"""Detection and ReID losses (port of ops/losses.py).
 
 Every loss returns the per-element loss with no reduction; `reduce_loss`
 applies a 0/1 weight mask (the padded-batch contract) and reduces. The
@@ -21,7 +20,8 @@ from .boxes import box_inter_union, enclosing_box
 
 __all__ = ["reduce_loss", "cornernet_focal_loss", "quality_focal_loss",
            "l1_loss", "smooth_l1_loss", "iou_loss", "giou_loss", "diou_loss",
-           "ciou_loss", "get_heatmap_loss", "get_box_loss"]
+           "ciou_loss", "reid_cross_entropy_loss", "reid_triplet_loss",
+           "get_heatmap_loss", "get_box_loss"]
 
 
 def reduce_loss(loss: torch.Tensor, reduction: str = "none",
@@ -60,10 +60,15 @@ def cornernet_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 def quality_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
                        beta: float = 2.0) -> torch.Tensor:
-    """Quality focal loss (Generalized Focal Loss)."""
+    """Quality focal loss (Generalized Focal Loss).
+
+    At a logit of exactly 0 the gradient is JAX's: `jnp.maximum(x, 0)`
+    passes half (torch.maximum, not clamp, which passes all of it) and
+    `jnp.abs` takes the x >= 0 side (torch.abs would pass none)."""
     probs = torch.sigmoid(logits)
-    ce = (torch.clamp(logits, min=0) - logits * targets
-          + torch.log1p(torch.exp(-torch.abs(logits))))
+    relu = torch.maximum(logits, torch.zeros_like(logits))
+    magnitude = torch.where(logits >= 0, logits, -logits)
+    ce = relu - logits * targets + torch.log1p(torch.exp(-magnitude))
     return torch.pow(torch.abs(targets - probs), beta) * ce
 
 
@@ -128,6 +133,56 @@ def ciou_loss(pred: torch.Tensor, target: torch.Tensor,
     v = torch.square(angle_diff)
     alpha = v / (1.0 - iou + v + eps)
     return (1.0 - iou + dist + alpha * v)[..., None]
+
+
+# ---- ReID losses ----------------------------------------------------------
+
+def reid_cross_entropy_loss(logits: torch.Tensor, ids: torch.Tensor,
+                            mask: Optional[torch.Tensor] = None,
+                            eps: float = 1e-8) -> torch.Tensor:
+    """Masked identity cross-entropy over (M, num_ids) logits: the mean
+    over the rows whose mask is set (sum / (mask sum + eps))."""
+    log_probs = F.log_softmax(logits, dim=-1)
+    ce = -torch.gather(log_probs, 1, ids.long()[:, None])[:, 0]
+    if mask is None:
+        return ce.mean()
+    mask = mask.to(ce.dtype)
+    return (ce * mask).sum() / (mask.sum() + eps)
+
+
+def reid_triplet_loss(embeddings: torch.Tensor, ids: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      margin: float = 0.05) -> torch.Tensor:
+    """Triplet margin loss on cosine similarity, with pytorch-metric-
+    learning's semantics: every valid triplet (a, p, n) with ids[a] ==
+    ids[p], a != p and ids[a] != ids[n], each relu(sim(a, n) - sim(a, p)
+    + margin), averaged over the violating (nonzero) ones; 0 when none
+    violates.
+
+    Runs over the (anchor, positive) pairs in chunks of M, each against
+    all M candidates: memory stays O(M^2), never the (M, M, M) tensor.
+    """
+    e = embeddings / (torch.linalg.vector_norm(embeddings, dim=-1,
+                                               keepdim=True) + 1e-12)
+    s = (e @ e.T).float()                                   # (M, M)
+    m = ids.shape[0]
+    valid = (torch.ones(m, dtype=torch.bool, device=ids.device)
+             if mask is None else mask.bool())
+    pair_ok = valid[None, :] & valid[:, None]
+    same = (ids[:, None] == ids[None, :]) & pair_ok
+    eye = torch.eye(m, dtype=torch.bool, device=ids.device)
+    neg_mask = ~same & pair_ok
+    anchors, positives = torch.nonzero(same & ~eye, as_tuple=True)
+    total = s.new_zeros(())
+    count = s.new_zeros(())
+    for start in range(0, anchors.numel(), max(m, 1)):
+        a = anchors[start:start + m]
+        p = positives[start:start + m]
+        loss = s[a] - s[a, p][:, None] + margin             # (pairs, M)
+        hit = (loss > 0) & neg_mask[a]
+        total = total + torch.where(hit, loss, torch.zeros_like(loss)).sum()
+        count = count + hit.sum()
+    return total / torch.clamp(count, min=1.0)
 
 
 _HEATMAP_LOSSES = {

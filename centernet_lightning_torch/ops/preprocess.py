@@ -25,7 +25,8 @@ def preprocess(
 ) -> torch.Tensor:
     """uint8 (N, H, W, 3) -> normalised float (N, size_h, size_w, 3), NHWC.
 
-    Bilinear resize with half-pixel centres, then (x - 255*mean) / (255*std).
+    Bilinear resize with half-pixel centres, then (x - 255*mean) / (255*std);
+    mean and std are sequences or tensors of 3.
     `jax.image.resize` antialiases when it downscales; `F.interpolate` does
     so only with `antialias=True`, which is passed on a downscale.
     """
@@ -36,6 +37,8 @@ def preprocess(
             x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
             align_corners=False, antialias=downscale,
         ).permute(0, 2, 3, 1)
-    mean_t = torch.tensor(mean, dtype=dtype, device=x.device) * 255.0
-    std_t = torch.tensor(std, dtype=dtype, device=x.device) * 255.0
+    # mean and std may already be tensors on the device (the predictor
+    # keeps them there): a list makes an H2D copy, which waits for the card
+    mean_t = torch.as_tensor(mean, dtype=dtype, device=x.device) * 255.0
+    std_t = torch.as_tensor(std, dtype=dtype, device=x.device) * 255.0
     return (x - mean_t) / std_t

@@ -8,7 +8,9 @@ tensor; `step_fn(state, batch)` still returns `(state, losses)`.
 A step: uint8 images normalised on the device; the forward in
 `compute_dtype` (bf16: the parameters are cast, so the gradients come back
 f32 through the cast, and BatchNorm keeps f32 running statistics); the
-losses in f32; the gradient; the optimizer update; the EMA.
+losses in f32 (the task's `train_forward` when it has one, as FairMOT
+does, else its `compute_loss` on the forward); the gradient; the optimizer
+update; the EMA.
 """
 from __future__ import annotations
 
@@ -55,6 +57,29 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             if isinstance(v, (np.ndarray, torch.Tensor))}
 
 
+class _Method(nn.Module):
+    """`model.<name>` as a module's forward, so `functional_call` can run
+    any method of the model with substituted parameters."""
+
+    def __init__(self, model: nn.Module, name: str):
+        super().__init__()
+        self.model = model
+        self.name = name
+
+    def forward(self, *args):
+        return getattr(self.model, self.name)(*args)
+
+
+def _caller(model: nn.Module, params: Optional[Dict[str, torch.Tensor]]):
+    """call(name, *args): the model's method `name` on `args`, with
+    `params` (name -> tensor) in place of its parameters when given."""
+    if params is None:
+        return lambda name, *args: getattr(model, name)(*args)
+    scoped = {f"model.{k}": v for k, v in params.items()}
+    return lambda name, *args: functional_call(_Method(model, name), scoped,
+                                               args)
+
+
 def _mean_std(task):
     return (getattr(task, "image_mean", None) or IMAGENET_MEAN,
             getattr(task, "image_std", None) or IMAGENET_STD)
@@ -64,10 +89,10 @@ def make_train_step(task, compute_dtype: Optional[Any] = None,
                     ema_decay: float = 0.0, ema_every: int = 1) -> Callable:
     """step_fn(state, batch) -> (state, losses): one training step.
 
-    batch: {image (N, H, W, 3) uint8 or float, boxes, labels, mask}, on the
-    model's device. compute_dtype "bfloat16" runs the forward and backward
-    in bf16 with f32 master weights (no autocast: every op, BatchNorm
-    included, sees bf16, as in the JAX step). ema_decay > 0 keeps
+    batch: {image (N, H, W, 3) uint8 or float, boxes, labels, mask, and
+    ids for FairMOT}, on the model's device. compute_dtype "bfloat16" runs
+    the forward and backward in bf16 with f32 master weights (no autocast:
+    every op, BatchNorm included, sees bf16, as in the JAX step). ema_decay > 0 keeps
     `state.ema_params` with the decay min(ema_decay, (1+t)/(10+t)), t the
     number of optimizer updates; under accumulation (ema_every = k) it
     moves on every k-th step only. Losses come back as f32 scalars, still
@@ -85,13 +110,15 @@ def make_train_step(task, compute_dtype: Optional[Any] = None,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model.train()
         params = state.params()
-        images = prepare(batch["image"])
-        if dtype is None:
-            outputs = model(images)
+        call = _caller(model, None if dtype is None else
+                       {k: p.to(dtype) for k, p in params.items()})
+        fwd_batch = dict(batch, image=prepare(batch["image"]))
+        train_forward = getattr(task, "train_forward", None)
+        if train_forward is not None:
+            losses = train_forward(call, fwd_batch)
         else:
-            outputs = functional_call(
-                model, {k: p.to(dtype) for k, p in params.items()}, (images,))
-        losses = task.compute_loss(outputs, batch)
+            losses = task.compute_loss(call("forward", fwd_batch["image"]),
+                                       fwd_batch)
         grads = torch.autograd.grad(losses["total"], list(params.values()),
                                     allow_unused=True)
         state.tx.update(params, named_grads(params, grads))

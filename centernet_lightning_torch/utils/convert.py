@@ -8,9 +8,11 @@
   - convolution kernels HWIO -> OIHW;
   - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var,
     plus `num_batches_tracked` = 0;
-  - scopes: `heads_<name>` -> `heads.<name>`; `extra_block` keeps its
-    name; `ConvNormAct_<i>` -> `blocks.<i>` (with `Conv_0`/`BatchNorm_0`
-    -> `conv`/`bn`, as inside `DarkConv_<i>` and `ConvBN_<i>`, which are
+  - scopes: `heads_<name>` -> `heads.<name>` (FairMOT's `heads_reid`
+    too); `extra_block` keeps its name; `classifier` keeps its name, with
+    `Dense_0`/`BatchNorm_0`/`Dense_1` -> `fc1`/`bn`/`fc2`;
+    `ConvNormAct_<i>` -> `blocks.<i>` (with `Conv_0`/`BatchNorm_0` ->
+    `conv`/`bn`, as inside `DarkConv_<i>` and `ConvBN_<i>`, which are
     `convs.<i>`); `CSPStage_<i>`, `ResBlock_<i>`, `InvertedResidual_<i>`
     -> `blocks.<i>`; `SqueezeExcite_0` -> `se` (`Conv_0`/`Conv_1` with
     bias -> `reduce`/`expand`); `Upsample_<j>` -> `upsamples.<j>` (with
@@ -22,7 +24,7 @@
   - kernels: convolutions HWIO -> OIHW (a depthwise (k, k, 1, C) becomes
     (C, 1, k, k)); a transpose conv's (k, k, in, out), which flax applies
     unflipped, -> flip(kernel, (0, 1)) as (in, out, k, k), since torch
-    flips it;
+    flips it; a Dense kernel (in, out) -> its transpose (out, in);
   - DCN and separable blocks: flax counts `DeformableConvBlock_<j>` and
     `SeparableConvNormAct_<j>` apart from `ConvNormAct_<i>`, and every
     `blocks` list of the port holds its plain blocks first (SimpleNeck
@@ -32,8 +34,8 @@
     `conv_offset`/`conv_mask`/`bn`, and the tap-major `kernel` (k^2 C, O)
     and `bias` -> `deform.weight` (O, C, k, k) and `deform.bias`.
 
-A scope the port does not have (the reid classifier, the backbones still
-to be ported) raises KeyError rather than being dropped.
+A scope the port does not have (the backbones still to be ported)
+raises KeyError rather than being dropped.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ _CHILDREN = {
                             "BatchNorm_0": "bn"},
     "SqueezeExcite": {"Conv_0": "reduce", "Conv_1": "expand"},
     "Upsample": {"ConvTranspose_0": "conv", "BatchNorm_0": "bn"},
+    "classifier": {"Dense_0": "fc1", "BatchNorm_0": "bn", "Dense_1": "fc2"},
     **{cls: {"Conv_0": "conv", "BatchNorm_0": "bn"}
        for cls in ("ConvNormAct", "DarkConv", "ConvBN")},
 }
@@ -69,7 +72,7 @@ def _scope(name: str, parent: str, siblings) -> str:
     subtree holds `siblings`."""
     if name.startswith("heads_"):
         return "heads." + name[len("heads_"):]
-    if name in ("backbone", "neck", "out_conv", "extra_block"):
+    if name in ("backbone", "neck", "out_conv", "extra_block", "classifier"):
         return name
     if name == "stem_conv":
         return "conv1"
@@ -131,6 +134,8 @@ def _kernel(path: Tuple[str, ...], arr: np.ndarray, params) -> np.ndarray:
         return arr[::-1, ::-1].transpose(2, 3, 0, 1)        # flip, -> (I, O, k, k)
     if arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)                    # HWIO -> OIHW
+    if arr.ndim == 2 and re.fullmatch(r"Dense_\d+", path[-2]):
+        return arr.T                                        # (in, out) -> (out, in)
     if arr.ndim == 2 and path[-2].startswith("DeformableConvBlock_"):
         # tap-major (k*k*C, O), row (ty*k + tx)*C + c -> (O, C, k, k); the
         # offset conv beside it gives k and C

@@ -8,7 +8,8 @@ source, in parallel), then runs these phases, each printing JSON lines
 with its seconds (`phase_s`); any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-     versions, the kernels' build time;
+     versions, the kernels' build time, and the build of the tracker's
+     native Hungarian solver (g++, native/src/native_ops.cc);
   2. kernel vs plain, every kernel against its plain PyTorch twin on the
      card:
      - `peak_class_scores_cuda`, bf16 and f32, probabilities and logits, at
@@ -16,8 +17,10 @@ with its seconds (`phase_s`); any failure exits non-zero:
        plus forced ties, NaNs (inside, at a corner, along borders), LVIS's
        1203 classes (also misaligned: the kernel streams classes in
        chunks of one-value loads), 1208 and 516 classes (chunks of 16-byte
-       vectors), H = 1, W = 1 and a W that leaves a partial strip of
-       columns; scores bitwise equal, labels exactly equal; the kernel's
+       vectors), H = 1, W = 1, a W that leaves a partial strip of
+       columns, and the tracking maps of one class, (8, 152, 272, 1) and
+       (8, 152, 152, 1) (random, NaN, edge ties, misaligned); scores
+       bitwise equal, labels exactly equal; the kernel's
        build (registers, spills, shared memory, strip, band, ring depth)
        for the flagship map is printed;
      - `dcn_sample_taps` and `dcn_fused_conv`, f32 and bf16, d = 1 and 2,
@@ -93,6 +96,22 @@ with its seconds (`phase_s`); any failure exits non-zero:
      centernet.yaml in fp16, whose heatmap the decode
      widens to f32 for the kernel: one peak launch, detections equal to
      the plain decode;
+     then the tracking path: `build_centernet` on configs/mot_tracking.yaml
+     (ResNet-34, FPN-256, heads 256 x 3, 1 class, ReID head 256 x 1 -> 64,
+     2900 identities) at 608 x 1088, bf16, BatchNorm calibrated, the
+     heatmap head's bias shifted so that the median top-300 peak score of
+     the first batch sits at the tracker's 0.3 threshold (seeded weights
+     score every pixel near the 0.1 prior); 640 seeded frames of 24
+     moving rectangles through `track_stream` in batches of 8 at pipeline
+     depths 1 and 2, the launch counts reset just before each and read
+     just after (one peak launch a batch), the same track ids a frame at
+     both depths, `native.available()`, and one batch's detections equal
+     to the plain decode; frames/s at each depth, device ms a frame
+     (forward + decode alone), association ms a frame (`Tracker.update`
+     alone), H2D ms a batch and the peak kernel at the tracking map
+     beside its bound; then FairMOT's train step (the YAML's Adam and
+     OneCycle) through `Trainer.fit`, 5 steps at b8 on seeded batches with
+     identities: step ms, the ReID loss, all losses finite;
   6. forward parity: the same f32 weights on the card (TF32 off) and on the
      CPU at batch 2, 512x512, for ResNet-34 FPN-256, for the DCN model
      on both DCN engines, and for centernet.yaml, helmet.yaml and the
@@ -191,6 +210,15 @@ ADAMW_LOSS_RTOL = 1e-3   # the second AdamW step's loss: Adam moves every
 # as a user passes them to build_centernet, and the reference's ResNet-34
 # BiFPN, built from a dict; random weights from a seed
 SHIPPED = ("centernet.yaml", "helmet.yaml", "base_resnet34.yaml")
+# the tracking path: configs/mot_tracking.yaml (ResNet-34, FPN-256, heads
+# 256 x 3, 1 class, ReID 256 x 1 -> 64 over 2900 identities) at 608 x 1088,
+# bf16, TRACK_FRAMES seeded frames of TRACK_OBJECTS moving rectangles in
+# batches of TRACK_BATCH; FairMOT trained TRACK_TRAIN_STEPS steps at b8
+TRACK_YAML = "mot_tracking.yaml"
+TRACK_FRAMES, TRACK_OBJECTS, TRACK_BATCH, TRACK_TRAIN_STEPS = 640, 24, 8, 5
+# the peak kernel at the tracking maps: one class, 608 x 1088 and CrowdHuman's
+# 608 x 608 frames at stride 4
+TRACK_MAPS = ((8, 152, 272, 1), (8, 152, 152, 1))
 BIFPN = {"num_classes": 80, "backbone": "resnet34", "neck": "BiFPN",
          "neck_config": {"out_channels": 256},
          "head_config": {"width": 256, "depth": 3}}
@@ -236,7 +264,7 @@ def calibrate_bn(pred, images):
             m.momentum = 0.1
 
 
-def decode_vs_plain(pred, images):
+def decode_vs_plain(pred, images, k=100):
     """The head outputs of `images`, decoded through the peak kernel and
     through the plain decode (ops/decode.py) on the same maps, widened to
     f32 as the fused decode widens an fp16 map: the peak maps must be
@@ -259,7 +287,7 @@ def decode_vs_plain(pred, images):
                 and torch.equal(a["labels_map"], b["labels_map"]))
         for out in (a, b):
             _, out["indices"], out["labels"] = decode_ops._topk(
-                out["flat"], out["labels_map"], 100, True)
+                out["flat"], out["labels_map"], k, True)
             out["boxes"] = decode_ops.gather_and_decode_boxes(
                 box, out["indices"], stride=pred.task.stride)
         check_same_detections(a, b)
@@ -599,24 +627,33 @@ def dcn_grads(fn, x, planes, kern, grad):
 
 # ---- training ------------------------------------------------------------
 
-def detection_batches(n_batches, batch, size, num_classes, dev, seed):
-    """CollateDetection batches made on `dev` from a seed: uint8 images,
-    MAX_BOXES padded xywh boxes an image inside it, about VALID_BOXES of
-    them valid."""
+def detection_batches(n_batches, batch, size, num_classes, dev, seed,
+                      max_ids=None):
+    """CollateDetection batches made on `dev` from a seed: uint8 images of
+    `size` (an int for a square, or (H, W)), MAX_BOXES padded xywh boxes an
+    image inside it, about VALID_BOXES of them valid; with `max_ids`, also
+    identities below it (FairMOT's `ids`)."""
+    h, w = (size, size) if isinstance(size, int) else size
+    extent = torch.tensor([w, h], dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = []
     for _ in range(n_batches):
         wh = torch.rand((batch, MAX_BOXES, 2), generator=gen, device=dev) \
-            * (size / 2 - 8) + 8
-        xy = torch.rand((batch, MAX_BOXES, 2), generator=gen, device=dev) * (size - wh)
+            * (extent / 2 - 8) + 8
+        xy = torch.rand((batch, MAX_BOXES, 2), generator=gen, device=dev) \
+            * (extent - wh)
         out.append({
-            "image": torch.randint(0, 256, (batch, size, size, 3), generator=gen,
+            "image": torch.randint(0, 256, (batch, h, w, 3), generator=gen,
                                    device=dev, dtype=torch.uint8),
             "boxes": torch.cat([xy, wh], -1),
             "labels": torch.randint(0, num_classes, (batch, MAX_BOXES),
                                     generator=gen, device=dev, dtype=torch.int32),
             "mask": (torch.rand((batch, MAX_BOXES), generator=gen, device=dev)
                      < VALID_BOXES).float()})
+        if max_ids is not None:
+            out[-1]["ids"] = torch.randint(0, max_ids, (batch, MAX_BOXES),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32)
     return out
 
 
@@ -754,12 +791,250 @@ def sgd_step_parity(cfg, batch, seed, prepare=None, dev="cuda"):
     return result
 
 
+# ---- tracking (configs/mot_tracking.yaml) ----------------------------------
+
+def synth_frames(n_frames, h, w, n_objects=24, seed=0):
+    """Moving bright rectangles on noise (bench_track.py's recipe): real
+    association work for the tracker and distinct peaks for the decode."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(10, 50, (n_frames, h, w, 3), dtype=np.uint8)
+    x = rng.uniform(0, w - 64, n_objects)
+    y = rng.uniform(0, h - 64, n_objects)
+    vx = rng.uniform(-4, 4, n_objects)
+    vy = rng.uniform(-4, 4, n_objects)
+    bw = rng.integers(24, 64, n_objects)
+    bh = rng.integers(24, 64, n_objects)
+    color = rng.integers(120, 255, (n_objects, 3))
+    for f in range(n_frames):
+        for i in range(n_objects):
+            xi = int(x[i] + f * vx[i]) % (w - int(bw[i]))
+            yi = int(y[i] + f * vy[i]) % (h - int(bh[i]))
+            frames[f, yi:yi + bh[i], xi:xi + bw[i]] = color[i]
+    return frames
+
+
+def tracking_config(dtype="bfloat16"):
+    """configs/mot_tracking.yaml as a user passes it (from beside this
+    script), in `dtype`; its `tracker:` section."""
+    from centernet_lightning_torch.train.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configs", TRACK_YAML))
+    model = dict(cfg["model"], compute_dtype=dtype)
+    return {"model": model}, dict(cfg["tracker"])
+
+
+def track_batches(frames):
+    for s in range(0, len(frames), TRACK_BATCH):
+        yield frames[s:s + TRACK_BATCH], TRACK_BATCH
+
+
+def run_stream(pred, frames, tracker_cfg, depth):
+    """All of `frames` through track_stream: (wall s, per-frame steps)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = list(pred.track_stream(track_batches(frames),
+                                   tracker_config=tracker_cfg,
+                                   pipeline_depth=depth))
+    return time.perf_counter() - t0, steps
+
+
+def tracking_phases(card, reset_launches, read_launches):
+    """The tracking path on configs/mot_tracking.yaml at 608 x 1088, b8,
+    bf16: serving through track_stream at pipeline depths 1 and 2 (phase
+    `tracking_main_path`, then `tracking_times`), then FairMOT's train step
+    (`tracking_train`). Returns the peak kernel's launches on the serving
+    path and its times at the tracking map."""
+    from centernet_lightning_torch import build_centernet, native
+    from centernet_lightning_torch.models.fairmot import FairMOT
+    from centernet_lightning_torch.models.tracker import Tracker
+    from centernet_lightning_torch.ops import decode as decode_ops
+    from centernet_lightning_torch.ops import peak_decode
+    from centernet_lightning_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    cfg, tracker_cfg = tracking_config()
+    tracker_cfg["min_birth_age"] = 1          # as bench_track.py serves it
+    h, w = cfg["model"]["image_size"]
+    k = tracker_cfg["num_detections"]
+    thr = tracker_cfg["detection_threshold"]
+    t0 = time.perf_counter()
+    frames = synth_frames(TRACK_FRAMES, h, w, TRACK_OBJECTS)
+    synth_s = time.perf_counter() - t0
+    pred = build_centernet(cfg, seed=0)
+    calibrate_bn(pred, frames[:TRACK_BATCH])
+    native_ok = native.available()
+
+    # seeded weights put every score near the heatmap prior (0.1), under
+    # the threshold: shift the heatmap head's bias so that the median of
+    # the first batch's top-k scores (peaks only: a suppressed pixel scores
+    # 0) lands at the threshold
+    def median_score():
+        with torch.inference_mode():
+            scores = pred._gather_tracking_device(
+                frames[:TRACK_BATCH], num_detections=k)["scores"]
+            return float(scores[scores > 0].median())
+
+    median = median_score()
+    shift = float(np.log(thr / (1 - thr)) - np.log(median / (1 - median)))
+    with torch.no_grad():
+        pred.model.heads["heatmap"].out_conv.bias.add_(shift)
+    median_after = median_score()
+    plain = decode_vs_plain(pred, frames[:TRACK_BATCH], k=k)
+
+    # warm-up at both depths, then every frame at depth 1 and at depth 2,
+    # each with the launch counts reset just before and read just after
+    for depth in (1, 2):
+        run_stream(pred, frames[:2 * TRACK_BATCH], tracker_cfg, depth)
+    runs = {}
+    for depth in (1, 2):
+        reset_launches()
+        wall, steps = run_stream(pred, frames, tracker_cfg, depth)
+        runs[depth] = {"wall_s": wall, "steps": steps, "launches": read_launches()}
+    ids_same = [s["track_ids"] for s in runs[1]["steps"]] == \
+        [s["track_ids"] for s in runs[2]["steps"]]
+    last = runs[1]["steps"][-1]
+    n_batches = TRACK_FRAMES // TRACK_BATCH
+    dets_per_frame = float(np.mean([s["num_detections"] for s in runs[1]["steps"]]))
+    emit({"phase": "tracking_main_path", "config": TRACK_YAML, "card": card,
+          "batch": TRACK_BATCH, "image_size": [h, w], "dtype": "bfloat16",
+          "frames": TRACK_FRAMES, "objects": TRACK_OBJECTS,
+          "num_detections": k, "detection_threshold": thr,
+          "tracker": tracker_cfg, "params_M": sum(
+              p.numel() for p in pred.model.parameters()) / 1e6,
+          "heatmap_bias_shift": shift, "median_topk_score_before": median,
+          "median_topk_score_after": median_after,
+          "detections_into_tracker_per_frame": dets_per_frame,
+          "native_available": native_ok,
+          "launches": {d: r["launches"] for d, r in runs.items()},
+          "track_ids_same_at_depths_1_2": ids_same,
+          "tracks_alive_at_end": len(last["track_ids"]),
+          "track_ids_issued": max((max(s["track_ids"], default=-1)
+                                   for s in runs[1]["steps"]), default=-1) + 1,
+          **plain, "decode_equal_plain": True, "frames_synth_s": synth_s,
+          "phase_s": time.perf_counter() - t_phase})
+    if not (native_ok and ids_same and plain["finite"]
+            and plain["peak_maps_equal_plain"]):
+        raise AssertionError("tracking main path check failed")
+    for depth, r in runs.items():
+        if len(r["steps"]) != TRACK_FRAMES:
+            raise AssertionError(f"depth {depth}: {len(r['steps'])} frames")
+        if r["launches"]["peak_class_scores_cuda"] != n_batches:
+            raise AssertionError(f"depth {depth}: expected one peak launch a "
+                                 f"batch ({n_batches}): {r['launches']}")
+    if dets_per_frame < 1:
+        raise AssertionError("no detection entered the tracker")
+
+    # times: the device alone (forward + decode on frames already on the
+    # card), the host's association alone (Tracker.update on the decoded
+    # arrays of every batch), the H2D copy of a batch, the peak kernel at
+    # the tracking map
+    t_phase = time.perf_counter()
+    dev_frames = pred.upload(frames[:TRACK_BATCH])
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: pred._gather_tracking_device(
+            dev_frames, num_detections=k), iters=20) / TRACK_BATCH
+        outs = pred.model(pred.prepare_images(dev_frames))
+    heat = outs["heatmap"]
+    decoded = [pred.gather_tracking2d(b, num_detections=k)
+               for b, _ in track_batches(frames)]
+    tracker = Tracker(model=pred.gather_tracking2d, **tracker_cfg)
+    t0 = time.perf_counter()
+    for d in decoded:
+        for i in range(TRACK_BATCH):
+            tracker.update(d["bboxes"][i], d["labels"][i], d["scores"][i],
+                           d["embeddings"][i])
+            tracker.frame += 1
+    assoc_ms = (time.perf_counter() - t0) / TRACK_FRAMES * 1e3
+    host = torch.from_numpy(frames[:TRACK_BATCH])
+    h2d = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.upload(host)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    pinned = host.pin_memory()
+    dma_ms = cuda_ms(lambda: pinned.to("cuda", non_blocking=True), iters=10)
+    # the host's share of a batch's dispatch (pin, upload, launches, D2H
+    # copies queued): host clock, the card left to run
+    dispatch = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred._dispatch(frames[:TRACK_BATCH], num_detections=k)
+        dispatch.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        kernel_ms = cuda_ms(lambda: peak_decode.peak_class_scores_cuda(heat, True),
+                            iters=100)
+        plain_ms = cuda_ms(lambda: peak_decode.peak_class_scores_reference(
+            heat, True), iters=10)
+    n, mh, mw, c = heat.shape
+    peak_b = bound(heat.numel() * heat.element_size() + n * mh * mw * 8,
+                   heat.numel() * 10 / H100_F32_OPS_PER_S * 1e3)
+    fps = {d: TRACK_FRAMES / r["wall_s"] for d, r in runs.items()}
+    emit({"phase": "tracking_times", "card": card, "batch": TRACK_BATCH,
+          "image_size": [h, w], "dtype": "bfloat16",
+          "frames_per_s": fps, "wall_s": {d: r["wall_s"] for d, r in runs.items()},
+          "device_ms_per_frame": device_ms,
+          "association_ms_per_frame": assoc_ms,
+          "association_tracks_at_end": len(tracker.tracks),
+          "h2d_ms_per_batch": float(np.median(h2d)), "h2d_dma_ms_per_batch": dma_ms,
+          "h2d_bytes_per_batch": host.numel(),
+          "dispatch_host_ms_per_batch": float(np.median(dispatch)),
+          "binding": max((("device", device_ms * TRACK_BATCH),
+                          ("association", assoc_ms * TRACK_BATCH),
+                          ("h2d", float(np.median(h2d)))), key=lambda x: x[1])[0],
+          "peak_map": list(heat.shape), "peak_kernel_ms": kernel_ms,
+          "peak_plain_ms": plain_ms, "peak_bound_share": peak_b["bound_ms"] / kernel_ms,
+          "peak_plan": dataclasses.asdict(peak_decode.plan_for(heat)), **peak_b,
+          "phase_s": time.perf_counter() - t_phase})
+    del pred, outs, heat, dev_frames, frames, decoded
+    torch.cuda.empty_cache()
+
+    # FairMOT's train step: the YAML's model and optimizer (Adam, OneCycle)
+    t_phase = time.perf_counter()
+    fields = {k2: v for k2, v in cfg["model"].items()
+              if k2 in FairMOT.__dataclass_fields__}
+    task = FairMOT(**fields)
+    # one seeded batch an epoch: the clock times each step
+    batches = detection_batches(1, TRACK_BATCH, (h, w), 1, "cuda", 12,
+                                max_ids=task.reid_config["max_track_ids"])
+    clock = EpochClock(batches)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(task, train_loader=clock, max_epochs=TRACK_TRAIN_STEPS,
+                      image_size=(h, w), precision="bf16", log_every=10 ** 9,
+                      logger_config={"backends": []})
+    clock.trainer = trainer
+    reset_launches()
+    trainer.fit()
+    clock.tick()
+    launches = read_launches()
+    steps_ms = list(np.diff(clock.times) * 1e3)
+    finite = all(np.isfinite(v) for l in clock.losses for v in l.values())
+    emit({"phase": "tracking_train", "config": TRACK_YAML, "card": card,
+          "batch": TRACK_BATCH, "image_size": [h, w], "dtype": "bfloat16",
+          "optimizer": task.optimizer_config, "steps": TRACK_TRAIN_STEPS,
+          "step_ms": steps_ms, "step_ms_after_first": float(np.median(steps_ms[1:])),
+          "losses": clock.losses, "reid_loss": [l["reid"] for l in clock.losses],
+          "finite": finite, "launches": launches,
+          "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_s": time.perf_counter() - t_phase})
+    if not (finite and len(clock.losses) == TRACK_TRAIN_STEPS):
+        raise AssertionError(f"FairMOT training: {clock.losses}")
+    del trainer, task, batches, clock
+    torch.cuda.empty_cache()
+    return {"launches": runs[1]["launches"]["peak_class_scores_cuda"],
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound": peak_b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
 
-    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch import build_centernet, native
     from centernet_lightning_torch.models.centernet import CenterNet
     from centernet_lightning_torch.ops import (_build, dcn, dcn_fused,
                                                dcn_sample, pool)
@@ -782,7 +1057,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     card = card_line()
     build_s = _build.build_all()
+    t0 = time.perf_counter()
+    native_ok = native.available()       # builds native/src/native_ops.cc
     emit({"phase": "device", "nvidia_smi": card,
+          "native_ops": native_ok, "native_build_s": time.perf_counter() - t0,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_sources": _build.sources(),
@@ -804,6 +1082,9 @@ def main() -> int:
     cases += [(shape, kind) for shape in ((2, 1, 70, 80), (2, 70, 1, 80),
                                           (2, 9, 100, 80), (2, 1, 1, 5))
               for kind in ("random", "nan")]
+    # one class (the tracking maps): one-value loads, one lane a pixel
+    cases += [(shape, kind) for shape in TRACK_MAPS
+              for kind in ("random", "nan", "edge_ties", "misaligned")]
     max_err = 0.0
     for shape, kind in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1508,6 +1789,10 @@ def main() -> int:
         raise AssertionError(f"fp16: expected one peak launch: {launches}")
     del hpred, dev_images
     torch.cuda.empty_cache()
+
+    # ---- 5d. the tracking path: serving and FairMOT training ---------------
+    track = tracking_phases(card, reset_launches, read_launches)
+    path_launches["peak_class_scores_cuda"] += track["launches"]
 
     # ---- 6. forward parity on the card ---------------------------------
     t_phase = time.perf_counter()

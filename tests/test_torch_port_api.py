@@ -169,7 +169,6 @@ def test_build_from_yaml_and_deferred_options(tmp_path):
     assert dets["scores"].dtype == np.float32 and np.isfinite(dets["bboxes"]).all()
     for bad, where in [
         ({"backbone": "dla34"}, "item 2b"),
-        ({"reid_config": {"emb_dim": 8}}, "item 5"),
         ({"backbone_config": {"stem_space_to_depth": True}}, "item 2b"),
         ({"backbone_config": {"remat": True}}, "item 2b"),
     ]:
@@ -179,8 +178,6 @@ def test_build_from_yaml_and_deferred_options(tmp_path):
     # without one is an error
     with pytest.raises(FileNotFoundError):
         t_build({"model": TINY}, checkpoint=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pred.track_stream([])
 
 
 def test_default_device_is_cuda_without_fallback():

@@ -103,24 +103,37 @@ def test_converter_refuses_unported_scopes():
     ("centernet.yaml", "CSPDarknet53", "FPN"),
     ("base_resnet34.yaml", "ResNet", "SimpleNeck"),
     ("helmet.yaml", "MobileNetV2", "SimpleNeck"),
+    ("mot_tracking.yaml", "ResNet", "FPN"),
+    ("crowdhuman_tracking.yaml", "ResNet", "FPN"),
+    ("base_tracking_resnet34_fpn.yaml", "ResNet", "FPN"),
 ])
 def test_shipped_config_builds(name, backbone, neck):
     """The shipped YAML builds on the CPU at full size, with the JAX
-    model's parameter count and stride."""
-    from centernet_lightning_tpu import build_centernet as j_build
+    model's parameter count (a tracking config's ReID head and identity
+    classifier included, as the JAX task's init creates it) and stride."""
+    from centernet_lightning_tpu.train.config import (load_config,
+                                                      normalize_config)
 
     path = os.path.join(CONFIG_DIR, name)
     pred = t_build(path, device="cpu")
     model = pred.model
     assert type(model.backbone).__name__ == backbone
     assert type(model.neck).__name__ == neck
-    jp = j_build(path)
-    shapes = jax.eval_shape(lambda k: jp.task.init(k, image_size=(64, 64)),
+    # the JAX task as its build_centernet makes it, traced, not initialised
+    j_cfg = normalize_config(load_config(path))["model"]
+    jtask = JCenterNet(**{k: v for k, v in j_cfg.items()
+                          if k in JCenterNet.__dataclass_fields__})
+    shapes = jax.eval_shape(lambda k: jtask.init(k, image_size=(64, 64)),
                             jax.random.PRNGKey(0))
     j_params = sum(int(np.prod(s.shape))
                    for s in jax.tree_util.tree_leaves(shapes["params"]))
     assert sum(p.numel() for p in model.parameters()) == j_params
-    assert pred.task.stride == jp.task.stride == 4
+    assert pred.task.stride == jtask.stride == 4
     dets = pred.gather_detection2d(np.zeros((1, 64, 64, 3), np.uint8))
-    assert dets["bboxes"].shape == (1, 100, 4)
+    k = min(pred.task.num_detections, 16 * 16)    # 64^2 at stride 4
+    assert dets["bboxes"].shape == (1, k, 4)
     assert np.isfinite(dets["scores"]).all()
+    if pred.task.reid_config is not None:
+        assert dets["embeddings"].shape == (1, k, 64)
+        assert model.classifier.fc2.out_features == \
+            pred.task.reid_config["max_track_ids"]

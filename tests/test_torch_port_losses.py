@@ -231,3 +231,34 @@ def test_box_intersection_clamp_tie_gradient():
     (inter * 1.5 + union).sum().backward()
     for leaf, r in zip(leaves, ref):
         _close(leaf.grad, r, rtol=1e-6, atol=1e-7)
+
+
+def test_quality_focal_loss_zero_logit_gradient():
+    """At a logit of exactly 0 the quality focal loss takes JAX's
+    subgradients (JAX losses.py:100): half through `jnp.maximum(x, 0)` and
+    the x >= 0 side of `jnp.abs`; elsewhere the same gradient."""
+    rng = np.random.default_rng(9)
+    logits = rng.normal(scale=2, size=(2, 5, 6, 2)).astype(np.float32)
+    logits[0, 1, :, 0] = 0.0
+    logits[1, :, 2, 1] = 0.0
+    target = rng.uniform(size=logits.shape).astype(np.float32)
+    weights = rng.normal(size=logits.shape).astype(np.float32)
+
+    ref = np.asarray(jax.grad(lambda x: jnp.sum(
+        j_losses.quality_focal_loss(x, jnp.asarray(target)) * weights))(
+            jnp.asarray(logits)))
+    t = torch.from_numpy(logits).requires_grad_()
+    (t_losses.quality_focal_loss(t, torch.from_numpy(target))
+     * torch.from_numpy(weights)).sum().backward()
+    _close(t.grad, ref, rtol=1e-6, atol=1e-7)
+    # the tie passes a gradient the clamp/abs form would not: at x = 0 the
+    # BCE term's derivative is 0.5 - t - 0.5 (half the max, the abs's +1
+    # through log1p(exp(-x)) at -0.5) = -t, where clamp gives 0.5 - t
+    tie = logits == 0
+    assert tie.sum() >= 10
+    probs = 0.5
+    mod = np.abs(target - probs) ** 2
+    bce_grad = -target
+    dmod = 2 * (probs - target) * 0.25 * np.log(2.0)   # d|t - p|^2 * ce at 0
+    np.testing.assert_allclose(ref[tie], ((mod * bce_grad + dmod) * weights)[tie],
+                               rtol=1e-5, atol=1e-6)
