@@ -9,7 +9,9 @@ The hand-written CUDA kernels (`csrc/`) are the fused peak/argmax decode
 (`ops/peak_decode.py`), the deformable convolution's tap sampling
 (`ops/dcn_sample.py`) and fused sampling + matmul (`ops/dcn_fused.py`),
 both differentiable through their plain twins, and the 3x3 / stride-2 max
-pool (`ops/pool.py`). Training lives in `train/` (`Trainer`); FairMOT
+pool (`ops/pool.py`). Training lives in `train/` (`Trainer`, which
+validates with the COCO protocol or the MOT metrics of `eval/` on batches
+from the readers, transforms and threaded loader of `data/`); FairMOT
 tracking in `models/fairmot.py` (the ReID head and its train step) and
 `models/tracker.py` (the host tracker, on the C++ Hungarian solver of
 `native/`), served by the predictor's `track_stream`.

@@ -33,6 +33,7 @@ from .models.tracker import Tracker
 from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
 from .train.checkpoint import load_checkpoint
 from .train.config import load_config, normalize_config
+from .utils import transfer
 from .utils.viz import draw_boxes
 
 __all__ = ["CenterNetPredictor", "build_centernet"]
@@ -50,23 +51,6 @@ def _extract_norm(data_cfg: Optional[Dict]) -> tuple:
                 args.get("std", IMAGENET_STD)
             )
     return tuple(IMAGENET_MEAN), tuple(IMAGENET_STD)
-
-
-def _host_copies(out: Dict[str, torch.Tensor]):
-    """Start the copies of the decode's outputs to the host: (host tensors,
-    event). On CUDA the copies go into pinned memory without blocking, on
-    the current stream, and the event marks their end; the host tensors
-    are valid once it has passed. On the CPU there is nothing to copy
-    (event None)."""
-    if not any(t.is_cuda for t in out.values()):
-        return out, None
-    host = {}
-    for k, t in out.items():
-        host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host[k].copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
 
 
 def _to_numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -116,10 +100,7 @@ class CenterNetPredictor:
         CUDA upload goes through pinned memory without blocking on the
         current stream, so it returns before the card has finished the work
         queued before it (a pageable copy would wait for it)."""
-        x = torch.as_tensor(images)
-        if self.device.type == "cuda" and x.device.type == "cpu":
-            return x.pin_memory().to(self.device, non_blocking=True)
-        return x.to(self.device)
+        return transfer.upload(images, self.device)
 
     def prepare_images(self, images) -> torch.Tensor:
         """The model's input: an NHWC batch on the device, uint8 normalised
@@ -295,7 +276,7 @@ class CenterNetPredictor:
         """Queue one batch's forward, decode and copies to the host:
         (host tensors, event)."""
         with torch.inference_mode():
-            return _host_copies(self._gather_tracking_device(frames,
+            return transfer.host_copies(self._gather_tracking_device(frames,
                                                              **gather_kwargs))
 
     def _inline_dispatch(self, batches: Iterable, **gather_kwargs):

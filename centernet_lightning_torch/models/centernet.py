@@ -153,6 +153,16 @@ class CenterNet:
                  + box_loss * self.box_loss_weight)
         return {"heatmap": heatmap_loss, "box_2d": box_loss, "total": total}
 
+    def get_dataloader(self, train: bool = True):
+        """The train (or validation) loader of the task's `train_data` (or
+        `val_data`) section (data/builder.py:loader_from_config)."""
+        from ..data.builder import loader_from_config
+
+        config = dict((self.train_data if train else self.val_data) or {})
+        if not config:
+            raise ValueError("no train_data/val_data configured")
+        return loader_from_config(config, train=train)
+
     @property
     def hparams(self) -> Dict[str, Any]:
         """The dataclass fields, as a checkpoint's hparams.json holds them."""

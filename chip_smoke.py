@@ -112,6 +112,30 @@ with its seconds (`phase_s`); any failure exits non-zero:
      beside its bound; then FairMOT's train step (the YAML's Adam and
      OneCycle) through `Trainer.fit`, 5 steps at b8 on seeded batches with
      identities: step ms, the ReID loss, all losses finite;
+     then validation inside the Trainer, each run once with every decode
+     also decoded plainly (ops/decode.py, no kernel) on the same head
+     outputs, once on those plain detections through a replaying eval
+     step, and once timed, the launch counts reset just before the first
+     and the timed run and read just after: `validation_main_path`, the
+     flagship (ResNet-34, FPN-256, heads 256 x 3, 80 classes, 512^2)
+     trained 3 bf16 steps at b32 by `Trainer.fit`, which validates at the
+     epoch's end on 512 seeded uint8 images of numpy-drawn rectangles
+     (boxes, labels, iscrowd, area; no OpenCV) through the port's
+     threaded DataLoader (4 workers) and CollateDetection at b64: the JAX
+     package's 12 val/* keys, all finite, one checkpoint in
+     `ckpt_dir/best`, one peak launch a validation batch, the metrics equal
+     to the plain decode's; validation images/s, device ms a batch
+     (forward + decode), the evaluator's host ms a batch and the host's
+     wait on the D2H event a batch; then `tracking_validation`:
+     configs/mot_tracking.yaml (608 x 1088, the YAML's tracker), 2
+     sequences of 160 frames (`synth_frames` with each frame's boxes and
+     ids) through CollateTracking with `sequence_id` into
+     `Trainer.validate()`, BatchNorm calibrated and the heatmap bias
+     shifted so that the 32nd peak of a frame sits at the tracker's
+     threshold: val/MOTA, val/IDF1, val/HOTA and the per-sequence keys
+     finite, 2 tracker resets, one peak launch a batch, the metrics equal
+     to the plain decode's; frames/s, device ms and association ms a
+     frame;
   6. forward parity: the same f32 weights on the card (TF32 off) and on the
      CPU at batch 2, 512x512, for ResNet-34 FPN-256, for the DCN model
      on both DCN engines, and for centernet.yaml, helmet.yaml and the
@@ -252,14 +276,20 @@ def calibrate_bn(pred, images):
     statistics the seeded CSPDarknet's activations grow past 1e4 (no
     residual branch starts at zero, unlike the ResNets'), and the exp box
     decode of configs/centernet.yaml overflows."""
-    norms = [m for m in pred.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    calibrate_model_bn(pred.model, pred.prepare_images(images))
+
+
+@torch.no_grad()
+def calibrate_model_bn(model, x):
+    """calibrate_bn on a model and its prepared input `x`."""
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for m in norms:
         m.momentum = 1.0
-    pred.model.train()
+    model.train()
     try:
-        pred.model(pred.prepare_images(images))
+        model(x)
     finally:
-        pred.model.eval()
+        model.eval()
         for m in norms:
             m.momentum = 0.1
 
@@ -793,9 +823,11 @@ def sgd_step_parity(cfg, batch, seed, prepare=None, dev="cuda"):
 
 # ---- tracking (configs/mot_tracking.yaml) ----------------------------------
 
-def synth_frames(n_frames, h, w, n_objects=24, seed=0):
+def synth_frames(n_frames, h, w, n_objects=24, seed=0, with_boxes=False):
     """Moving bright rectangles on noise (bench_track.py's recipe): real
-    association work for the tracker and distinct peaks for the decode."""
+    association work for the tracker and distinct peaks for the decode.
+    with_boxes: also each frame's rectangles as (n_objects, 4) f32 xywh
+    boxes and their ids 0..n_objects-1, one array of each a frame."""
     rng = np.random.default_rng(seed)
     frames = rng.integers(10, 50, (n_frames, h, w, 3), dtype=np.uint8)
     x = rng.uniform(0, w - 64, n_objects)
@@ -805,11 +837,15 @@ def synth_frames(n_frames, h, w, n_objects=24, seed=0):
     bw = rng.integers(24, 64, n_objects)
     bh = rng.integers(24, 64, n_objects)
     color = rng.integers(120, 255, (n_objects, 3))
+    boxes = np.zeros((n_frames, n_objects, 4), np.float32)
     for f in range(n_frames):
         for i in range(n_objects):
             xi = int(x[i] + f * vx[i]) % (w - int(bw[i]))
             yi = int(y[i] + f * vy[i]) % (h - int(bh[i]))
             frames[f, yi:yi + bh[i], xi:xi + bw[i]] = color[i]
+            boxes[f, i] = (xi, yi, bw[i], bh[i])
+    if with_boxes:
+        return frames, list(boxes), [np.arange(n_objects)] * n_frames
     return frames
 
 
@@ -1027,6 +1063,331 @@ def tracking_phases(card, reset_launches, read_launches):
     torch.cuda.empty_cache()
     return {"launches": runs[1]["launches"]["peak_class_scores_cuda"],
             "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound": peak_b}
+
+
+# ---- validation (Trainer.fit and Trainer.validate) -------------------------
+
+# detection: VAL_IMAGES seeded images at SIZE^2 through the port's threaded
+# DataLoader (VAL_WORKERS workers) and CollateDetection in batches of
+# VAL_BATCH, after VAL_TRAIN_STEPS bf16 train steps at TRAIN_BATCH;
+# tracking: VAL_SEQUENCES sequences of VAL_FRAMES frames of
+# configs/mot_tracking.yaml in batches of TRACK_BATCH, the heatmap bias
+# shifted so that the VAL_TRACK_PEAK-th peak of a frame sits at the
+# tracker's threshold
+VAL_IMAGES, VAL_BATCH, VAL_WORKERS, VAL_TRAIN_STEPS = 512, 64, 4, 3
+VAL_SEQUENCES, VAL_FRAMES, VAL_TRACK_PEAK = 2, 160, 32
+# the JAX package's val/* keys of a detection task (eval/coco_eval.py)
+COCO_KEYS = ("mAP", "AP50", "AP75", "AP_small", "AP_medium", "AP_large",
+             "AR1", "AR10", "mAR", "AR_small", "AR_medium", "AR_large")
+
+
+class RectangleImages:
+    """An in-memory detection dataset: `n` seeded uint8 images of size^2,
+    noise under 1-15 rectangles drawn with numpy (no OpenCV), with their
+    xywh boxes, labels, `iscrowd` (about 5%) and `area` (0.6-1 of the
+    box's)."""
+
+    def __init__(self, n, size, num_classes, seed):
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 40, (n, size, size, 3), dtype=np.uint8)
+        self.targets = []
+        for img in self.images:
+            k = int(rng.integers(1, 16))
+            wh = rng.uniform(8, size / 2, (k, 2))
+            xy = rng.uniform(0, size - wh)
+            for (x, y), (w, h), c in zip(xy.astype(int), wh.astype(int),
+                                         rng.integers(100, 256, (k, 3))):
+                img[y:y + h, x:x + w] = c
+            self.targets.append({
+                "bboxes": np.concatenate([xy, wh], 1).astype(np.float32),
+                "labels": rng.integers(0, num_classes, k),
+                "iscrowd": (rng.uniform(size=k) < 0.05).astype(np.int64),
+                "area": (wh.prod(1) * rng.uniform(0.6, 1.0, k)).astype(np.float32)})
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return {"image": self.images[i], **self.targets[i], "image_id": i}
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def plain_decodes(stash):
+    """While active, every decode of the task (ops/decode.py:
+    decode_detections_auto, through the peak kernel on the card) also runs
+    the plain decode (ops/decode.py:decode_detections, no kernel) on the
+    same head outputs and appends its result to `stash`."""
+    from centernet_lightning_torch.ops import decode as decode_ops
+
+    real = decode_ops.decode_detections_auto
+
+    def both(*args, **kwargs):
+        out = real(*args, **kwargs)
+        stash.append(decode_ops.decode_detections(*args, **kwargs))
+        return out
+
+    return patched(decode_ops, "decode_detections_auto", both)
+
+
+def replayed(stash):
+    """An eval step that returns `stash`'s detections in order."""
+    it = iter(list(stash))
+    return lambda state, batch: next(it)
+
+
+def validation_phases(card, reset_launches, read_launches):
+    """Validation inside the Trainer: the flagship's COCO validation in
+    `Trainer.fit` (`validation_main_path`) and the MOT validation of
+    configs/mot_tracking.yaml (`tracking_validation`). Each runs its
+    validation once with every decode also decoded plainly, then the same
+    loop on those plain detections (the metrics must be equal), then once
+    more, timed. Returns the peak kernel's launches on both paths."""
+    import shutil
+    import tempfile
+
+    import centernet_lightning_torch.train.trainer as trainer_mod
+    from centernet_lightning_torch.data import (CollateDetection,
+                                                CollateTracking, DataLoader)
+    from centernet_lightning_torch.eval.coco_eval import CocoEvaluator
+    from centernet_lightning_torch.models.centernet import CenterNet
+    from centernet_lightning_torch.models.fairmot import FairMOT
+    from centernet_lightning_torch.models.tracker import Tracker
+    from centernet_lightning_torch.ops.preprocess import preprocess
+    from centernet_lightning_torch.train import Trainer
+
+    # ---- detection: ResNet-34 FPN-256, 80 classes, 512^2 ----------------
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dataset = RectangleImages(VAL_IMAGES, SIZE, 80, seed=31)
+    data_s = time.perf_counter() - t0
+    loader = DataLoader(dataset, batch_size=VAL_BATCH, num_workers=VAL_WORKERS,
+                        collate_fn=CollateDetection())
+    n_val = len(loader)
+    task = CenterNet(num_classes=80, backbone="resnet34", neck="FPN",
+                     neck_config={"out_channels": 256},
+                     head_config={"width": 256, "depth": 3}, **TRAIN_RECIPE)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_val_")
+    trainer = Trainer(
+        task, train_loader=detection_batches(VAL_TRAIN_STEPS, TRAIN_BATCH, SIZE,
+                                             80, "cuda", 33),
+        val_loader=loader, max_epochs=1, optimizer_config=TRAIN_OPT,
+        image_size=(SIZE, SIZE), precision="bf16", ckpt_dir=ckpt_dir,
+        log_every=10 ** 9, logger_config={"backends": []})
+    fit_metrics, stash = [], []
+    real_validate = trainer.validate
+    trainer.validate = lambda: fit_metrics.append(real_validate()) or fit_metrics[-1]
+    reset_launches()
+    with plain_decodes(stash):
+        trainer.fit()
+    launches = read_launches()
+    del trainer.validate
+    real_step = trainer.eval_step
+    trainer.eval_step = replayed(stash)
+    plain_metrics = trainer.validate()
+    trainer.eval_step = real_step
+    # timed: the evaluator's update and metrics on the host's clock
+    clock = {"update_s": 0.0, "metrics_s": 0.0}
+
+    class TimedEvaluator(CocoEvaluator):
+        def update(self, preds, targets):
+            t = time.perf_counter()
+            super().update(preds, targets)
+            clock["update_s"] += time.perf_counter() - t
+
+        def get_metrics(self):
+            t = time.perf_counter()
+            out = super().get_metrics()
+            clock["metrics_s"] += time.perf_counter() - t
+            return out
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with patched(trainer_mod, "CocoEvaluator", TimedEvaluator):
+        timed_metrics = trainer.validate()
+    val_s = time.perf_counter() - t0
+    timed_launches = read_launches()
+    stats = dict(trainer.val_stats)
+    dev_images = torch.from_numpy(dataset.images[:VAL_BATCH]).cuda()
+    device_ms = cuda_ms(lambda: trainer.eval_step(trainer.state,
+                                                  {"image": dev_images}), iters=5)
+    best = sorted(d for d in os.listdir(os.path.join(ckpt_dir, "best"))
+                  if d.startswith("step_"))
+    metrics = fit_metrics[0] if fit_metrics else {}
+    keys_ok = set(metrics) == {f"val/{k}" for k in COCO_KEYS}
+    finite = bool(metrics) and all(np.isfinite(v) for v in metrics.values())
+    evaluator_ms = (clock["update_s"] + clock["metrics_s"]) / n_val * 1e3
+    emit({"phase": "validation_main_path", "card": card,
+          "model": "resnet34_fpn256", "image_size": SIZE, "train_batch": TRAIN_BATCH,
+          "train_steps": VAL_TRAIN_STEPS, "train_dtype": "bfloat16",
+          "eval_dtype": "float32", "val_images": VAL_IMAGES, "val_batch": VAL_BATCH,
+          "val_batches": n_val, "loader_workers": VAL_WORKERS,
+          "data_synth_s": data_s, "metrics": metrics, "keys_equal_jax_set": keys_ok,
+          "finite": finite, "best_checkpoints": best,
+          "launches": launches, "timed_run_launches": timed_launches,
+          "metrics_equal_plain_decode": plain_metrics == metrics,
+          "plain_decodes": len(stash),
+          "timed_run_metrics_equal": timed_metrics == metrics,
+          "val_images_per_s": stats["images"] / val_s, "val_wall_s": val_s,
+          "loop_images_per_s": stats["images"] / stats["seconds"],
+          "loop_wall_s": stats["seconds"],
+          "device_ms_per_batch": device_ms,
+          "evaluator_host_ms_per_batch": evaluator_ms,
+          "evaluator_update_ms_per_batch": clock["update_s"] / n_val * 1e3,
+          "evaluator_get_metrics_s": clock["metrics_s"],
+          "d2h_wait_ms_per_batch": stats["wait_s"] / n_val * 1e3,
+          "binding": "host" if evaluator_ms > device_ms else "device",
+          "phase_s": time.perf_counter() - t_phase})
+    if not (keys_ok and finite and len(fit_metrics) == 1 and len(best) == 1
+            and plain_metrics == metrics and len(stash) == n_val):
+        raise AssertionError("validation main path check failed")
+    for name, got in (("fit", launches), ("timed", timed_launches)):
+        if got["peak_class_scores_cuda"] != n_val:
+            raise AssertionError(f"validation ({name}): expected one peak launch a "
+                                 f"batch ({n_val}): {got}")
+    det_launches = launches["peak_class_scores_cuda"]
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del trainer, task, loader, dataset, stash, dev_images
+    torch.cuda.empty_cache()
+
+    # ---- tracking: configs/mot_tracking.yaml, 608 x 1088 -----------------
+    t_phase = time.perf_counter()
+    cfg, tracker_cfg = tracking_config()
+    h, w = cfg["model"]["image_size"]
+    fields = {k: v for k, v in cfg["model"].items()
+              if k in FairMOT.__dataclass_fields__}
+    task = FairMOT(**fields)
+    collate = CollateTracking(max_boxes=64)
+    t0 = time.perf_counter()
+    batches = []
+    for s in range(VAL_SEQUENCES):
+        frames, boxes, ids = synth_frames(VAL_FRAMES, h, w, TRACK_OBJECTS,
+                                          seed=40 + s, with_boxes=True)
+        items = [{"image": f, "bboxes": b, "labels": np.zeros(len(b), np.int64),
+                  "ids": i + 100 * s, "sequence_id": s}
+                 for f, b, i in zip(frames, boxes, ids)]
+        batches += [collate(items[j:j + TRACK_BATCH])
+                    for j in range(0, VAL_FRAMES, TRACK_BATCH)]
+        del frames, items
+    data_s = time.perf_counter() - t0
+    n_val = len(batches)
+    trainer = Trainer(task, val_loader=batches, image_size=(h, w),
+                      precision="bf16", tracker_config=tracker_cfg,
+                      log_every=10 ** 9, logger_config={"backends": []})
+    model = trainer.state.model
+    first = torch.from_numpy(batches[0]["image"]).cuda()
+    calibrate_model_bn(model, preprocess(first))
+    thr = tracker_cfg["detection_threshold"]
+
+    def kth_score():
+        scores = trainer.eval_step(trainer.state, {"image": first})["scores"]
+        return float(scores[:, VAL_TRACK_PEAK - 1].median())
+
+    kth = kth_score()
+    shift = float(np.log(thr / (1 - thr)) - np.log(kth / (1 - kth)))
+    with torch.no_grad():
+        model.heads["heatmap"].out_conv.bias.add_(shift)
+    kth_after = kth_score()
+    clock = {"resets": 0, "updates": 0, "update_s": 0.0, "metrics_s": 0.0}
+
+    class CountingTracker(Tracker):
+        def reset(self):
+            clock["resets"] += 1
+            super().reset()
+
+        def update(self, *args, **kwargs):
+            t = time.perf_counter()
+            out = super().update(*args, **kwargs)
+            clock["update_s"] += time.perf_counter() - t
+            clock["updates"] += 1
+            return out
+
+    real_eval = trainer_mod.evaluate_mot_tracking_sequences
+
+    def timed_eval(per_seq):
+        t = time.perf_counter()
+        out = real_eval(per_seq)
+        clock["metrics_s"] += time.perf_counter() - t
+        clock["pred_ids"] = {k: len({int(i) for f in v["pred_track_ids"] for i in f})
+                             for k, v in per_seq.items()}
+        clock["pred_boxes_per_frame"] = float(np.mean(
+            [len(f) for v in per_seq.values() for f in v["pred_track_ids"]]))
+        return out
+
+    def run():
+        for key in ("resets", "updates", "update_s", "metrics_s"):
+            clock[key] = 0
+        t0 = time.perf_counter()
+        with patched(trainer_mod, "Tracker", CountingTracker), \
+                patched(trainer_mod, "evaluate_mot_tracking_sequences", timed_eval):
+            out = trainer.validate()
+        clock["wall_s"] = time.perf_counter() - t0
+        return out, dict(clock)
+
+    stash = []
+    reset_launches()
+    with plain_decodes(stash):
+        metrics, first_clock = run()
+    launches = read_launches()
+    real_step = trainer.eval_step
+    trainer.eval_step = replayed(stash)
+    plain_metrics, plain_clock = run()
+    trainer.eval_step = real_step
+    reset_launches()
+    timed_metrics, timed_clock = run()
+    timed_launches = read_launches()
+    stats = dict(trainer.val_stats)
+    device_ms = cuda_ms(lambda: trainer.eval_step(trainer.state, {"image": first}),
+                        iters=10) / TRACK_BATCH
+    names = {f"val/{p}{m}" for p in [""] + [f"seq{s}/" for s in range(VAL_SEQUENCES)]
+             for m in ("MOTA", "IDF1", "HOTA")}
+    finite = all(np.isfinite(v) for v in metrics.values())
+    frames = stats["images"]
+    emit({"phase": "tracking_validation", "card": card, "config": TRACK_YAML,
+          "batch": TRACK_BATCH, "image_size": [h, w], "train_dtype": "bfloat16",
+          "eval_dtype": "float32", "sequences": VAL_SEQUENCES,
+          "frames_per_sequence": VAL_FRAMES, "val_batches": n_val,
+          "tracker": tracker_cfg, "heatmap_bias_shift": shift,
+          "kth_peak_score_before": kth, "kth_peak_score_after": kth_after,
+          "data_synth_s": data_s, "metrics": metrics,
+          "keys_ok": set(metrics) == names, "finite": finite,
+          "tracker_resets": first_clock["resets"],
+          "pred_track_ids": first_clock.get("pred_ids"),
+          "reported_boxes_per_frame": first_clock.get("pred_boxes_per_frame"),
+          "launches": launches, "timed_run_launches": timed_launches,
+          "metrics_equal_plain_decode": plain_metrics == metrics,
+          "plain_decodes": len(stash),
+          "timed_run_metrics_equal": timed_metrics == metrics,
+          "frames_per_s": frames / timed_clock["wall_s"],
+          "val_wall_s": timed_clock["wall_s"],
+          "loop_frames_per_s": frames / stats["seconds"],
+          "loop_wall_s": stats["seconds"],
+          "device_ms_per_frame": device_ms,
+          "association_ms_per_frame": timed_clock["update_s"] / max(1, timed_clock["updates"]) * 1e3,
+          "mot_metrics_s": timed_clock["metrics_s"],
+          "d2h_wait_ms_per_batch": stats["wait_s"] / n_val * 1e3,
+          "phase_s": time.perf_counter() - t_phase})
+    if not (set(metrics) == names and finite and plain_metrics == metrics
+            and len(stash) == n_val and frames == VAL_SEQUENCES * VAL_FRAMES):
+        raise AssertionError("tracking validation check failed")
+    if first_clock["resets"] != VAL_SEQUENCES or plain_clock["resets"] != VAL_SEQUENCES:
+        raise AssertionError(f"expected {VAL_SEQUENCES} tracker resets: "
+                             f"{first_clock['resets']}, {plain_clock['resets']}")
+    for name, got in (("first", launches), ("timed", timed_launches)):
+        if got["peak_class_scores_cuda"] != n_val:
+            raise AssertionError(f"tracking validation ({name}): expected one "
+                                 f"peak launch a batch ({n_val}): {got}")
+    del trainer, task, batches, stash, first, model
+    torch.cuda.empty_cache()
+    return det_launches + launches["peak_class_scores_cuda"]
 
 
 def main() -> int:
@@ -1793,6 +2154,10 @@ def main() -> int:
     # ---- 5d. the tracking path: serving and FairMOT training ---------------
     track = tracking_phases(card, reset_launches, read_launches)
     path_launches["peak_class_scores_cuda"] += track["launches"]
+
+    # ---- 5e. validation: COCO in Trainer.fit, MOT in Trainer.validate -------
+    path_launches["peak_class_scores_cuda"] += validation_phases(
+        card, reset_launches, read_launches)
 
     # ---- 6. forward parity on the card ---------------------------------
     t_phase = time.perf_counter()

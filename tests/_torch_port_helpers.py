@@ -282,3 +282,79 @@ def train_step_parity(optimizer: str, frozen_stages: int, steps: int = 3,
         assert frozen and all(torch.equal(got[k], start[k]) for k in frozen)
         for k in ("backbone.bn1.running_mean", "backbone.layer1.0.bn1.running_var"):
             assert torch.equal(got[k], start[k]), k
+
+
+# ---- the JAX package's own tests, run against the port ---------------------
+
+JAX_PKG, PORT_PKG = "centernet_lightning_tpu", "centernet_lightning_torch"
+
+
+def _port_module(name: str):
+    import importlib
+
+    return importlib.import_module(PORT_PKG + name[len(JAX_PKG):])
+
+
+def on_port(fn, monkeypatch, modules=()):
+    """`fn`, a test function of the JAX package's test suite, rebound to
+    the port: each global it reads from the JAX package (a class, function
+    or module) becomes the port's object of the same name, helper functions
+    of its test module are rebound the same way, and, for the duration of
+    the test (`monkeypatch`), importing one of `modules` (JAX package
+    module names) inside it imports the port's module of the same path.
+    A name the port lacks raises."""
+    import importlib
+    import sys
+    import types
+
+    parents = {}
+    for name in modules:
+        parent, _, leaf = name.rpartition(".")
+        parents[name] = (importlib.import_module(parent), leaf)
+    for name in modules:
+        port = _port_module(name)
+        monkeypatch.setitem(sys.modules, name, port)
+        # `import a.b.c as m` reads the attributes of the real packages
+        monkeypatch.setattr(*parents[name], port)
+    source = fn.__globals__
+    rebound = dict(source)
+    for key, obj in source.items():
+        if isinstance(obj, types.ModuleType):
+            if obj.__name__.split(".")[0] == JAX_PKG:
+                rebound[key] = _port_module(obj.__name__)
+            continue
+        origin = getattr(obj, "__module__", None)
+        if isinstance(origin, str) and origin.split(".")[0] == JAX_PKG:
+            rebound[key] = getattr(_port_module(origin),
+                                   getattr(obj, "__name__", key))
+        elif isinstance(obj, types.FunctionType) and origin == source["__name__"]:
+            rebound[key] = types.FunctionType(obj.__code__, rebound, obj.__name__,
+                                              obj.__defaults__, obj.__closure__)
+    return types.FunctionType(fn.__code__, rebound, fn.__name__,
+                              fn.__defaults__, fn.__closure__)
+
+
+def jax_test_names(module):
+    """The names of `module`'s test functions, in file order."""
+    import inspect
+
+    return [name for name, obj in vars(module).items()
+            if name.startswith("test_") and inspect.isfunction(obj)]
+
+
+def run_on_port(module, name, request, monkeypatch, modules):
+    """Run `module.<name>` (a JAX package test; "Class.method" for a method
+    of a test class) against the port, its fixtures drawn from `request`."""
+    import inspect
+
+    owner, _, attr = name.rpartition(".")
+    fn = getattr(getattr(module, owner), attr) if owner else getattr(module, name)
+    bound = on_port(fn, monkeypatch, modules)
+    params = list(inspect.signature(fn).parameters)
+    args = []
+    if owner:
+        args.append(getattr(module, owner)())
+        params = params[1:]
+    args += [monkeypatch if p == "monkeypatch" else request.getfixturevalue(p)
+             for p in params]
+    return bound(*args)

@@ -31,3 +31,21 @@ def test_port_imports_no_jax():
     bad = [(os.path.relpath(f, ROOT), mod) for f in files
            for mod in _imported_roots(f) if mod in FORBIDDEN]
     assert not bad, bad
+
+
+def test_port_loads_without_opencv():
+    """The card's machine has no OpenCV: the package, its data, eval and
+    train subpackages and the trainer must import with cv2 hidden."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['cv2'] = None\n"
+            "import centernet_lightning_torch, centernet_lightning_torch.data, "
+            "centernet_lightning_torch.eval, centernet_lightning_torch.train\n"
+            "from centernet_lightning_torch.train.trainer import Trainer\n"
+            "from centernet_lightning_torch.data import transforms, mosaic\n"
+            "assert sys.modules['cv2'] is None\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -191,8 +191,11 @@ def test_checkpoint_serves_and_restores(tmp_path):
 
 def test_trainer_options():
     batches = _batches(3)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        _trainer(batches, val_loader=batches)
+    # validation is ported (tests/test_torch_port_validation.py); the image
+    # diagnostics are not, and their option raises
+    assert _trainer(batches, val_loader=batches).val_loader is batches
+    with pytest.raises(NotImplementedError, match="item 3"):
+        _trainer(batches, diagnostics=True)
     assert _trainer(batches, val_check_interval=0.5).val_check_steps == 1
     assert _trainer(batches, val_check_interval=2).val_check_steps == 2
     assert _trainer(batches, val_check_interval=1.0).val_check_steps is None
