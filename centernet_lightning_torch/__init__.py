@@ -14,7 +14,10 @@ validates with the COCO protocol or the MOT metrics of `eval/` on batches
 from the readers, transforms and threaded loader of `data/`); FairMOT
 tracking in `models/fairmot.py` (the ReID head and its train step) and
 `models/tracker.py` (the host tracker, on the C++ Hungarian solver of
-`native/`), served by the predictor's `track_stream`.
+`native/`), served by the predictor's `track_stream`. The command-line
+entry points are in `cli/` (`python -m centernet_lightning_torch.cli.train
+--config configs/centernet.yaml`, and `pack_dataset`, `validate`, `detect`,
+`track`).
 
 Entry points default to `device="cuda"` and never fall back to the CPU;
 pass `device="cpu"` explicitly to run the plain PyTorch versions.

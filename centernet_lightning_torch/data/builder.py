@@ -1,6 +1,5 @@
 """Dataset/dataloader registry (a copy of the JAX package's data/builder.py;
-the packed cache and the multi-process sharding by rank wait for the train
-CLI and DDP, ROADMAP Queue 1 items 4 and 6).
+the multi-process sharding by rank waits for DDP, ROADMAP Queue 1 item 6).
 
 Restores the reference's Gen-A builder API (reference
 datasets/builder.py:17-59): name registry {coco, voc, crowdhuman,
@@ -115,9 +114,23 @@ def loader_from_config(config, train: bool, seed=None):
     cfg = dict(config)
     cfg.setdefault("type", "coco")
     if cfg["type"] == "packed":
-        raise NotImplementedError(
-            "the packed dataset cache (data/packed.py) is ported with the "
-            "train CLI (ROADMAP Queue 1 item 4)")
+        # the memory-mapped cache (cli/pack_dataset.py, data/packed.py):
+        # batch assembly is a fancy-index per array and no image is decoded.
+        # One process reads the whole pack; sharding by rank waits for DDP
+        # (ROADMAP Queue 1 item 6), so an explicit shard_id/num_shards is
+        # the only sharding
+        from .packed import PackedLoader
+
+        return PackedLoader(
+            cfg.get("data_dir") or cfg["pack_dir"],
+            batch_size=cfg.get("batch_size", 32),
+            shuffle=cfg.get("shuffle", train),
+            drop_last=cfg.get("drop_last"),
+            flip_p=cfg.get("flip_p", 0.0),
+            seed=0 if seed is None else seed,
+            shard_id=cfg.get("shard_id", 0),
+            num_shards=cfg.get("num_shards", 1),
+        )
     loader_keys = {"batch_size", "num_workers", "shuffle", "max_boxes",
                    "drop_last", "pin_memory", "shard_id", "num_shards"}
     loader_cfg = {k: cfg.pop(k) for k in list(cfg) if k in loader_keys}

@@ -21,7 +21,7 @@ from .heads import GenericHead, ReIDClassifier
 from .layers import SPP, DeformableConvBlock, Fuse, Upsample, bilinear_kernel
 from .necks import build_neck
 
-__all__ = ["GenericModel", "create_model", "init_weights"]
+__all__ = ["GenericModel", "create_model", "init_weights", "param_count_report"]
 
 
 class GenericModel(nn.Module):
@@ -145,6 +145,21 @@ def create_model(
         classifier = ReIDClassifier(emb_dim, max_track_ids)
     return GenericModel(bb, nk, heads, extra_block=extra_block,
                         classifier=classifier), stride
+
+
+def param_count_report(model: GenericModel) -> str:
+    """Parameter counts in millions, one line a top-level submodule, named
+    and ordered as the JAX package's report names its flax scopes
+    (backbone, classifier, extra_block, heads_<name>, neck)."""
+    parts = {f"heads_{name}": head for name, head in model.heads.items()}
+    parts.update((name, child) for name, child in model.named_children()
+                 if name != "heads")
+    width = max(len(k) for k in parts) + 1
+    lines = []
+    for name in sorted(parts):
+        n = sum(p.numel() for p in parts[name].parameters()) / 1e6
+        lines.append(f"{name:{width}}: {n:.1f}M")
+    return "\n".join(lines)
 
 
 def _trunc_normal_fan_in(weight: torch.Tensor, scale: float,

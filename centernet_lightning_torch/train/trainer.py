@@ -16,14 +16,24 @@ metrics with one tracker a sequence (`validate_tracking`: val/MOTA,
 val/IDF1, val/HOTA). Validation runs one batch deep: the next batch's
 upload (pinned), forward and decode are queued before the host waits for
 the previous batch's detections, so the card computes while the host
-scores. Multi-process gathers (DDP) and the image diagnostics are not
-ported (ROADMAP Queue 1 items 6 and 3).
+scores.
+
+Also as in the JAX package: a parameter-count report at `fit`'s start;
+image diagnostics (the first train batch's target heatmaps, and on the
+first validation batch the predictions, the score histogram and the
+backbone's channel means), best-effort, one warning a run when they fail;
+an optional torch.profiler trace of the first epoch under
+`ckpt_dir/profile`; and a graceful stop on SIGTERM or SIGINT (finish the
+step, checkpoint, return). Multi-process gathers (DDP) are not ported
+(ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
 import math
 import os
+import signal
 import time
+import warnings
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -31,6 +41,7 @@ import torch
 
 from ..eval.coco_eval import CocoEvaluator
 from ..eval.mot import evaluate_mot_tracking_sequences
+from ..models.meta import param_count_report
 from ..models.tracker import Tracker
 from ..utils import transfer
 from ..utils.box_np import convert_box_format
@@ -38,7 +49,8 @@ from .checkpoint import (latest_checkpoint, load_checkpoint, restore_partial,
                          save_checkpoint)
 from .logging import MetricLogger
 from .optim import MultiSteps, make_optimizer, schedule_from_config
-from .state import TrainState, make_eval_step, make_train_step, to_device
+from .state import (TrainState, _mean_std, make_eval_step, make_train_step,
+                    to_device)
 
 __all__ = ["Trainer"]
 
@@ -52,8 +64,7 @@ class Trainer:
     that many batches (more than an epoch's raises), 1 or None at the end
     of the epoch; `val_interval` picks the epochs that validate at all.
     `tracker_config` goes to the validation's `Tracker`. `diagnostics`
-    (image logging) is not ported and must stay False, its default here
-    (the JAX package's default is True)."""
+    logs the image diagnostics; `profile` traces the first epoch."""
 
     def __init__(self, task, train_loader=None, val_loader=None,
                  max_epochs: int = 100,
@@ -63,16 +74,13 @@ class Trainer:
                  val_interval: int = 1,
                  val_check_interval: Optional[float] = None,
                  image_size=(512, 512), seed: int = 0, resume: bool = True,
-                 log_every: int = 50, precision: Optional[str] = None,
+                 profile: bool = False, log_every: int = 50,
+                 precision: Optional[str] = None,
                  finetune_from: Optional[str] = None,
                  logger_config: Optional[Dict[str, Any]] = None,
                  accumulate_grad_batches: int = 1, ema_decay: float = 0.0,
                  tracker_config: Optional[Dict[str, Any]] = None,
-                 diagnostics: bool = False, device="cuda"):
-        if diagnostics:
-            raise NotImplementedError(
-                "the image diagnostics (utils/viz.py) are not ported yet "
-                "(ROADMAP Queue 1 item 3); pass diagnostics=False")
+                 diagnostics: bool = True, device="cuda"):
         self.task = task
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -85,10 +93,15 @@ class Trainer:
         self.image_size = tuple(image_size)
         task.image_size = self.image_size   # checkpoints record it
         self.resume = resume
+        self.profile = profile
         self.log_every = log_every
+        self.diagnostics = diagnostics
         self.device = torch.device(device)
-        self.logger = MetricLogger(log_dir, backends=tuple(
-            (logger_config or {}).get("backends", ("tensorboard",))))
+        lc = dict(logger_config or {})
+        self.logger = MetricLogger(
+            log_dir, backends=tuple(lc.get("backends", ("tensorboard",))),
+            project=lc.get("project"), run_name=lc.get("run_name"),
+            config=task.hparams)
 
         opt_cfg = dict(optimizer_config or task.optimizer_config or {})
         opt_cfg.pop("jit", None)
@@ -145,6 +158,9 @@ class Trainer:
         # seconds and the seconds the host waited for the card's
         # detections (the metrics computed after the loop not included)
         self.val_stats: Dict[str, float] = {}
+        self._profiler = None
+        self._diag_warned = False  # the first diagnostic failure warns
+        self._stop_requested = False
 
     def _maybe_resume(self) -> None:
         if not (self.resume and self.ckpt_dir):
@@ -181,25 +197,100 @@ class Trainer:
         save_checkpoint(ckpt_dir, tree, hparams=self.task.hparams,
                         step=self.state.step, keep_last=1 if tag else 3)
 
+    # ------------------------------------------------------------------
+
+    def _install_preemption_handler(self) -> Dict[int, Any]:
+        """SIGTERM and SIGINT request a graceful stop: finish the current
+        step, checkpoint, return, so that resuming continues the run. A
+        second signal restores the old handler and raises the signal again,
+        so a repeated Ctrl-C aborts. Off the main thread nothing is
+        installed. Returns the handlers to restore."""
+        self._stop_requested = False
+        previous = {}
+
+        def handler(signum, frame):
+            if self._stop_requested:
+                signal.signal(signum, previous.get(signum, signal.SIG_DFL))
+                os.kill(os.getpid(), signum)
+                return
+            self._stop_requested = True
+            print(f"signal {signum}: stopping after the current step "
+                  f"(checkpoint + clean exit); repeat to force-abort")
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                pass
+        return previous
+
+    def _should_stop(self, step: int) -> bool:
+        """Whether a stop was requested. One process: the agreement of all
+        processes on the step to stop at waits for DDP (ROADMAP Queue 1
+        item 6)."""
+        return self._stop_requested
+
+    @staticmethod
+    def _restore_signal_handlers(previous: Dict[int, Any]) -> None:
+        for sig, h in previous.items():
+            signal.signal(sig, h)
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profile(self) -> None:
+        """Close the trace if one is open (the first epoch's end, a
+        preemption stop, or an error) and write it to
+        `ckpt_dir/profile/trace_step_<step>.json` (Chrome trace format)."""
+        if self._profiler is not None:
+            prof, self._profiler = self._profiler, None
+            prof.stop()
+            out = os.path.join(self.ckpt_dir or ".", "profile")
+            os.makedirs(out, exist_ok=True)
+            path = os.path.join(out, f"trace_step_{self.state.step}.json")
+            prof.export_chrome_trace(path)
+            print(f"profile trace written to {path}")
+        self.profile = False
+
     def fit(self) -> TrainState:
-        n_params = sum(p.numel() for p in self.state.model.parameters())
-        print(f"parameters: {n_params / 1e6:.2f} M")
+        print(param_count_report(self.state.model))
+        if self.profile:
+            self._start_profile()
+        previous_handlers = self._install_preemption_handler()
         try:
             return self._fit_loop()
         finally:
+            self._restore_signal_handlers(previous_handlers)
+            self._stop_profile()
             self.logger.close()
 
     def _fit_loop(self) -> TrainState:
+        first_batch_logged = not self.diagnostics
         step = self.state.step
         for epoch in range(self.start_epoch, self.max_epochs):
             t0 = time.time()
             n_imgs = 0
             for batch_idx, batch in enumerate(self.train_loader):
+                if not first_batch_logged:
+                    self._log_heatmap_diagnostic(batch)
+                    first_batch_logged = True
                 n_imgs += batch["image"].shape[0]
                 self.state, losses = self.train_step(
                     self.state, to_device(batch, self.device))
                 self.last_losses = losses
                 step += 1
+                if self._should_stop(step):
+                    self._stop_profile()
+                    self._save(epoch)  # resuming restarts this epoch
+                    print(f"preempted at step {step}: checkpoint written, "
+                          f"exiting cleanly")
+                    return self.state
                 if step % self.log_every == 0:
                     metrics = {f"train/{k}_loss": float(v)
                                for k, v in losses.items()}
@@ -214,6 +305,8 @@ class Trainer:
                     # hit is the epoch-end validation); val_interval picks
                     # the epochs that validate at all
                     self._run_validation(epoch + 1)
+            if epoch == self.start_epoch:
+                self._stop_profile()
             if (self.val_loader is not None and self.val_check_steps is None
                     and (epoch + 1) % self.val_interval == 0):
                 self._run_validation(epoch + 1)
@@ -238,6 +331,110 @@ class Trainer:
         if self.task.reid_config is not None:
             return self.validate_tracking()
         return self.validate_detection()
+
+    # ---- diagnostics ------------------------------------------------------
+
+    def _warn_diagnostic_failure(self, which: str, exc: Exception) -> None:
+        """Diagnostics must not break training, nor fail unseen: the first
+        failure of a run warns, later ones stay quiet."""
+        if self._diag_warned:
+            return
+        self._diag_warned = True
+        warnings.warn(
+            f"diagnostic logging ({which}) failed and will be skipped for "
+            f"this run: {type(exc).__name__}: {exc}",
+            RuntimeWarning, stacklevel=3)
+
+    def _log_heatmap_diagnostic(self, batch) -> None:
+        """The target heatmaps of the first 4 images of the first train
+        batch, overlaid on them in one grid (diagnostics/target_heatmap)."""
+        try:
+            from ..ops.targets import render_heatmap
+            from ..utils.viz import render_heatmap_diagnostic
+
+            part = {k: torch.as_tensor(batch[k][:4]).cpu()
+                    for k in ("image", "boxes", "labels", "mask")}
+            img = part["image"].numpy()
+            h, w = img.shape[1:3]
+            stride = self.task.stride
+            hm = render_heatmap(
+                part["boxes"].float(), part["labels"].int(), part["mask"],
+                self.task.num_classes, h // stride, w // stride, stride,
+                self.task._radius_fn).numpy()
+            grid = render_heatmap_diagnostic(img, hm)
+            self.logger.log_image("diagnostics/target_heatmap", grid, 0)
+        except Exception as exc:
+            self._warn_diagnostic_failure("target_heatmap", exc)
+
+    def _log_prediction_diagnostic(self, batch, dets, step: int) -> None:
+        """On the first validation batch: its first 4 images with their
+        detections scored 0.3 or more (diagnostics/val_predictions), the
+        scores' histogram (diagnostics/det_scores), the first image's box
+        overlay (diagnostics/val_boxes) and the backbone's channel means."""
+        try:
+            from ..utils.viz import draw_boxes, make_image_grid
+
+            tiles = []
+            for i in range(min(4, batch["image"].shape[0])):
+                keep = dets["scores"][i] >= 0.3
+                tiles.append(draw_boxes(
+                    np.asarray(batch["image"][i]),
+                    np.asarray(dets["boxes"][i])[keep],
+                    labels=np.asarray(dets["labels"][i])[keep],
+                    scores=np.asarray(dets["scores"][i])[keep],
+                ))
+            self.logger.log_image("diagnostics/val_predictions",
+                                  make_image_grid(tiles, ncols=2), step)
+            self.logger.log_histogram("diagnostics/det_scores",
+                                      dets["scores"], step)
+            self.logger.log_boxes(
+                "diagnostics/val_boxes", np.asarray(batch["image"][0]),
+                np.asarray(dets["boxes"][0]),
+                labels=np.asarray(dets["labels"][0]),
+                scores=np.asarray(dets["scores"][0]), step=step,
+            )
+            self._log_feature_diagnostic(batch, step)
+        except Exception as exc:
+            self._warn_diagnostic_failure("val_predictions", exc)
+
+    @torch.no_grad()
+    def _backbone_channel_means(self, images) -> list:
+        """The channel mean of each backbone pyramid level of `images`
+        (NHWC, uint8 normalised as the train step does), one eval-mode pass
+        of `model.backbone` on the model's own weights: (N, H_l, W_l)
+        numpy maps, finest first."""
+        model = self.state.model
+        was_training = model.training
+        model.eval()
+        try:
+            x = transfer.upload(images, self.device)
+            if x.dtype == torch.uint8:
+                from ..ops.preprocess import preprocess
+
+                mean, std = _mean_std(self.task)
+                x = preprocess(x, mean=mean, std=std)
+            x = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            return [level.float().mean(dim=1).cpu().numpy()
+                    for level in model.backbone(x)]
+        finally:
+            model.train(was_training)
+
+    def _log_feature_diagnostic(self, batch, step: int) -> None:
+        """The backbone's channel means on the first validation image,
+        viridis-mapped, scaled to the finest level's size and tiled
+        (diagnostics/backbone_features)."""
+        import cv2
+
+        from ..utils.viz import apply_mpl_cmap, make_image_grid
+
+        levels = self._backbone_channel_means(batch["image"][:1])
+        size = max(level.shape[1] for level in levels)
+        tiles = [cv2.resize(apply_mpl_cmap(level[0]), (size, size),
+                            interpolation=cv2.INTER_NEAREST)
+                 for level in levels]
+        self.logger.log_image("diagnostics/backbone_features",
+                              make_image_grid(tiles, ncols=2), step)
 
     def _eval_batches(self) -> Iterator[Tuple[Dict[str, Any],
                                               Dict[str, np.ndarray]]]:
@@ -275,7 +472,11 @@ class Trainer:
         are masked per image, with `iscrowd` and `area` when the batch has
         them."""
         evaluator = CocoEvaluator(self.task.num_classes)
+        logged = not self.diagnostics
         for batch, dets in self._eval_batches():
+            if not logged:
+                self._log_prediction_diagnostic(batch, dets, self.state.step)
+                logged = True
             boxes_xywh = convert_box_format(dets["boxes"], "xyxy", "xywh")
             n = batch["image"].shape[0]
             preds = [{"boxes": boxes_xywh[i], "scores": dets["scores"][i],
@@ -298,7 +499,11 @@ class Trainer:
         tracker = Tracker(model=None, **self.tracker_config)
         per_seq: Dict[int, Dict[str, list]] = {}
         current_seq = None
+        logged = not self.diagnostics
         for batch, dets in self._eval_batches():
+            if not logged:
+                self._log_prediction_diagnostic(batch, dets, self.state.step)
+                logged = True
             n = batch["image"].shape[0]
             seq_ids = np.asarray(batch.get("sequence_id", np.zeros(n, np.int64)))
             in_h, in_w = batch["image"].shape[1:3]

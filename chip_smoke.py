@@ -136,6 +136,29 @@ with its seconds (`phase_s`); any failure exits non-zero:
      finite, 2 tracker resets, one peak launch a batch, the metrics equal
      to the plain decode's; frames/s, device ms and association ms a
      frame;
+     then the train CLI (`cli_main_path`): configs/centernet.yaml as
+     shipped (CSPDarknet-53, FPN-256, heads 256 x 3, 80 classes, 512^2,
+     bf16, its AdamW recipe) but for its data sections, which become
+     packs (data/packed.py's format, written with numpy from the
+     detection_batches recipe: 256 train images at b32 with flips, 128
+     val images with `area` and `iscrowd` at b64), 2 epochs and a log a
+     step; `cli.train.main` runs in this process with --profile: the
+     resolved config.yaml, the checkpoints of epochs 1 and 2 and one in
+     `best/`, metrics.jsonl with the train losses, lr, images/s and the
+     JAX package's 12 val/* keys, all finite, a profiler trace holding
+     CUDA kernel events, one peak launch a validation batch, and at
+     most one diagnostic warning a run (printed); then
+     `--max-epochs 3` resumes at epoch 2 and trains one epoch whose steps
+     continue the first run's; then `build_centernet` on `best/`, served
+     in bf16 on a b64 batch: one peak launch, the detections equal to the
+     plain decode's; then, where OpenCV is (the tools read image files),
+     `cli.validate` and `cli.detect` on that checkpoint over 64 of the
+     val images written as PNG with a COCO annotation file, and
+     `cli.track` on a seeded configs/mot_tracking.yaml checkpoint over 16
+     seeded 608 x 1088 frames with their MOT ground truth: one peak
+     launch a batch each, the metrics' keys, finite; the CLI's train
+     images/s and step ms, the packed loader's host ms a batch alone,
+     each validation's seconds;
   6. forward parity: the same f32 weights on the card (TF32 off) and on the
      CPU at batch 2, 512x512, for ResNet-34 FPN-256, for the DCN model
      on both DCN engines, and for centernet.yaml, helmet.yaml and the
@@ -154,6 +177,7 @@ prints them, then {"kernels": [...]}, then {"ok": true, "device": {...}}.
 Without a card, or without the package beside it, the script exits
 non-zero and prints no result.
 """
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -748,7 +772,7 @@ def fit_path(task, batches, epochs, opt_cfg, dev, prepare=None):
     trainer = Trainer(task, train_loader=clock, max_epochs=epochs,
                       optimizer_config=opt_cfg, image_size=(SIZE, SIZE),
                       precision="bf16", log_every=10 ** 9, device=dev,
-                      logger_config={"backends": []})
+                      logger_config={"backends": []}, diagnostics=False)
     clock.trainer = trainer
     if prepare is not None:
         prepare(trainer.state.model)
@@ -1041,7 +1065,7 @@ def tracking_phases(card, reset_launches, read_launches):
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(task, train_loader=clock, max_epochs=TRACK_TRAIN_STEPS,
                       image_size=(h, w), precision="bf16", log_every=10 ** 9,
-                      logger_config={"backends": []})
+                      logger_config={"backends": []}, diagnostics=False)
     clock.trainer = trainer
     reset_launches()
     trainer.fit()
@@ -1181,7 +1205,7 @@ def validation_phases(card, reset_launches, read_launches):
                                              80, "cuda", 33),
         val_loader=loader, max_epochs=1, optimizer_config=TRAIN_OPT,
         image_size=(SIZE, SIZE), precision="bf16", ckpt_dir=ckpt_dir,
-        log_every=10 ** 9, logger_config={"backends": []})
+        log_every=10 ** 9, logger_config={"backends": []}, diagnostics=False)
     fit_metrics, stash = [], []
     real_validate = trainer.validate
     trainer.validate = lambda: fit_metrics.append(real_validate()) or fit_metrics[-1]
@@ -1281,7 +1305,8 @@ def validation_phases(card, reset_launches, read_launches):
     n_val = len(batches)
     trainer = Trainer(task, val_loader=batches, image_size=(h, w),
                       precision="bf16", tracker_config=tracker_cfg,
-                      log_every=10 ** 9, logger_config={"backends": []})
+                      log_every=10 ** 9, logger_config={"backends": []},
+                      diagnostics=False)
     model = trainer.state.model
     first = torch.from_numpy(batches[0]["image"]).cuda()
     calibrate_model_bn(model, preprocess(first))
@@ -1388,6 +1413,388 @@ def validation_phases(card, reset_launches, read_launches):
     del trainer, task, batches, stash, first, model
     torch.cuda.empty_cache()
     return det_launches + launches["peak_class_scores_cuda"]
+
+
+# ---- the train CLI (cli/train.py) on packs --------------------------------
+
+# configs/centernet.yaml as shipped but for its data sections (packs of
+# seeded images: CLI_TRAIN_IMAGES at CLI_TRAIN_BATCH with flips,
+# CLI_VAL_IMAGES at CLI_VAL_BATCH), CLI_EPOCHS epochs, then one more on
+# resume
+CLI_YAML = "centernet.yaml"
+CLI_TRAIN_IMAGES, CLI_TRAIN_BATCH = 256, 32
+CLI_VAL_IMAGES, CLI_VAL_BATCH = 128, 64
+CLI_EPOCHS = 2
+# the image-reading tools (where OpenCV is): TOOL_IMAGES of the val pack
+# through cli.validate and cli.detect, TOOL_FRAMES tracking frames through
+# cli.track, in batches of TOOL_BATCH
+TOOL_IMAGES, TOOL_FRAMES, TOOL_BATCH = 64, 16, 8
+
+
+def detection_pack(out_dir, n, seed, eval_keys=False):
+    """A pack of `n` seeded CollateDetection samples (detection_batches'
+    recipe: uint8 SIZE^2 images, MAX_BOXES padded boxes about VALID_BOXES
+    valid, the padding zeroed), with `image_id`; with `eval_keys`, also
+    COCO's `area` (0.6-1 of the box) and `iscrowd` (about 5%). Written by
+    data/packed.py:write_pack."""
+    from centernet_lightning_torch.data.packed import write_pack
+
+    batches = detection_batches(n // TRAIN_BATCH, TRAIN_BATCH, SIZE, 80, "cpu",
+                                seed)
+    arrays = {k: torch.cat([b[k] for b in batches]).numpy() for k in batches[0]}
+    mask = arrays["mask"]
+    arrays["boxes"] *= mask[..., None]
+    arrays["labels"] *= mask.astype(np.int32)
+    arrays["image_id"] = np.arange(n, dtype=np.int64)
+    if eval_keys:
+        rng = np.random.default_rng(seed)
+        wh = arrays["boxes"][..., 2:]
+        arrays["area"] = (wh.prod(-1) * rng.uniform(0.6, 1.0, mask.shape)
+                          * mask).astype(np.float32)
+        arrays["iscrowd"] = ((rng.uniform(size=mask.shape) < 0.05)
+                             * mask).astype(np.int32)
+    write_pack(out_dir, arrays)
+    return arrays
+
+
+def captured_json(fn, argv):
+    """Run a CLI's `main(argv)` in this process: its last stdout line as
+    JSON."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{fn.__module__} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def cli_tools(work, best_dir, val, reset_launches, read_launches, device):
+    """The image-reading tools on the card (they need OpenCV): images of
+    the val pack written as PNG with a COCO annotation file, through
+    `cli.validate` and `cli.detect` on the train CLI's best checkpoint;
+    TOOL_FRAMES seeded 608 x 1088 frames with their MOT ground truth
+    through `cli.track` on a seeded configs/mot_tracking.yaml checkpoint.
+    One peak launch a batch each. Returns (results, checks, launches)."""
+    import cv2
+
+    from centernet_lightning_torch.cli import detect as cli_detect
+    from centernet_lightning_torch.cli import track as cli_track
+    from centernet_lightning_torch.cli import validate as cli_validate
+    from centernet_lightning_torch.models.fairmot import FairMOT
+    from centernet_lightning_torch.train.checkpoint import save_checkpoint
+
+    img_dir = os.path.join(work, "coco", "images")
+    os.makedirs(img_dir)
+    images, annotations = [], []
+    for i in range(TOOL_IMAGES):
+        name = f"{i:06d}.png"
+        cv2.imwrite(os.path.join(img_dir, name),
+                    cv2.cvtColor(val["image"][i], cv2.COLOR_RGB2BGR))
+        images.append({"id": i + 1, "file_name": name, "width": SIZE,
+                       "height": SIZE})
+        for k in np.flatnonzero(val["mask"][i]):
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": i + 1,
+                "category_id": int(val["labels"][i, k]) + 1,
+                "bbox": [float(v) for v in val["boxes"][i, k]],
+                "area": float(val["area"][i, k]),
+                "iscrowd": int(val["iscrowd"][i, k])})
+    ann = os.path.join(work, "coco", "annotations.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": c + 1, "name": str(c)}
+                                  for c in range(80)]}, f)
+    batches = -(-TOOL_IMAGES // TOOL_BATCH)
+    results, launches, times = {}, {}, {}
+    dev = ["--device", device, "--batch-size", str(TOOL_BATCH)]
+
+    def run(name, fn, argv):
+        reset_launches()
+        t = time.perf_counter()
+        results[name] = captured_json(fn, argv + dev)
+        times[name] = time.perf_counter() - t
+        launches[name] = read_launches()["peak_class_scores_cuda"]
+
+    run("validate", cli_validate.main,
+        ["--checkpoint", best_dir, "--img-dir", img_dir, "--ann-json", ann,
+         "--image-size", str(SIZE),
+         "--save-results", os.path.join(work, "coco", "results.json")])
+    run("detect", cli_detect.main,
+        ["--checkpoint", best_dir, "--images", img_dir, "--score-threshold",
+         "0.0", "--out", os.path.join(work, "detect"), "--save-images"])
+
+    # tracking: a seeded FairMOT checkpoint of configs/mot_tracking.yaml
+    cfg, _ = tracking_config(dtype=None)
+    h, w = cfg["model"]["image_size"]
+    task = FairMOT(**{k: v for k, v in cfg["model"].items()
+                      if k in FairMOT.__dataclass_fields__})
+    task.init(torch.Generator().manual_seed(5))
+    track_ckpt = os.path.join(work, "track_ckpt")
+    save_checkpoint(track_ckpt, {"model": task.model.state_dict(), "step": 0},
+                    hparams=task.hparams, step=0)
+    del task
+    frames, boxes, ids = synth_frames(TOOL_FRAMES, h, w, TRACK_OBJECTS,
+                                      seed=61, with_boxes=True)
+    seq = os.path.join(work, "mot", "SYNTH-01")
+    os.makedirs(os.path.join(seq, "img1"))
+    os.makedirs(os.path.join(seq, "gt"))
+    lines = []
+    for f, (frame, fb, fi) in enumerate(zip(frames, boxes, ids), start=1):
+        cv2.imwrite(os.path.join(seq, "img1", f"{f:06d}.png"),
+                    cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+        lines += [f"{f},{i + 1},{x:.1f},{y:.1f},{bw:.1f},{bh:.1f},1,1,1"
+                  for (x, y, bw, bh), i in zip(fb, fi)]
+    with open(os.path.join(seq, "gt", "gt.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(seq, "seqinfo.ini"), "w") as f:
+        f.write(f"[Sequence]\nname=SYNTH-01\nimDir=img1\nframeRate=30\n"
+                f"seqLength={TOOL_FRAMES}\nimWidth={w}\nimHeight={h}\n"
+                f"imExt=.png\n")
+    run("track", cli_track.main,
+        ["--checkpoint", track_ckpt, "--frames", os.path.join(seq, "img1"),
+         "--out", os.path.join(work, "track"),
+         "--eval-gt", os.path.join(work, "mot"), "--seq", "SYNTH-01",
+         "--tracker", "detection_threshold=0.0", "min_birth_age=1",
+         "num_detections=32"])
+    def finite(d):
+        return all(np.isfinite(v) for v in d.values() if isinstance(v, float))
+
+    checks = {
+        "validate_keys": set(results["validate"]) == set(COCO_KEYS),
+        "validate_finite": finite(results["validate"]),
+        "detect_images": results["detect"]["images"] == TOOL_IMAGES,
+        "detect_saved": len(os.listdir(os.path.join(work, "detect", "images")))
+        == TOOL_IMAGES,
+        "track_frames": results["track"]["frames"] == TOOL_FRAMES,
+        "track_metrics": {"HOTA", "MOTA", "IDF1"} <= set(results["track"])
+        and finite(results["track"]),
+        "peak_launches": launches == {
+            "validate": batches, "detect": batches,
+            "track": -(-TOOL_FRAMES // TOOL_BATCH)},
+    }
+    return {"results": results, "seconds": times}, checks, launches
+
+
+def cli_phases(card, reset_launches, read_launches, device="cuda"):
+    """`cli_main_path`: configs/centernet.yaml trained from packs by the
+    train CLI in this process (`cli.train.main`, with --profile), resumed
+    for one more epoch, then served from its best checkpoint, then the
+    image-reading tools where OpenCV is (`cli_tools`). Returns the peak
+    kernel's launches."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import yaml
+
+    from centernet_lightning_torch import CenterNetPredictor, build_centernet
+    from centernet_lightning_torch.cli import train as cli_train
+    from centernet_lightning_torch.data.packed import PackedLoader
+    from centernet_lightning_torch.train import Trainer
+    from centernet_lightning_torch.train.checkpoint import load_checkpoint
+    from centernet_lightning_torch.train.config import load_config
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    t0 = time.perf_counter()
+    train_dir, val_dir = os.path.join(work, "train"), os.path.join(work, "val")
+    detection_pack(train_dir, CLI_TRAIN_IMAGES, seed=51)
+    val = detection_pack(val_dir, CLI_VAL_IMAGES, seed=52, eval_keys=True)
+    pack_s = time.perf_counter() - t0
+    pack_mb = sum(os.path.getsize(os.path.join(d, f)) for d in (train_dir, val_dir)
+                  for f in os.listdir(d)) / 1e6
+
+    # the shipped YAML; only the data sections become packs (each keeps its
+    # transforms' Normalize, which the predictor reads), 2 epochs, a log a step
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = load_config(os.path.join(here, "configs", CLI_YAML))
+    model = config["model"]
+
+    def packed(section, pack_dir, batch, **extra):
+        norm = [t for t in model[section].get("transforms", [])
+                if t.get("name") == "Normalize"]
+        return {"type": "packed", "data_dir": pack_dir, "batch_size": batch,
+                "transforms": norm, **extra}
+
+    model["train_data"] = packed("train_data", train_dir, CLI_TRAIN_BATCH,
+                                 flip_p=0.5)
+    model["val_data"] = packed("val_data", val_dir, CLI_VAL_BATCH)
+    config["trainer"].update(max_epochs=CLI_EPOCHS, log_every_n_steps=1)
+    yaml_path = os.path.join(work, CLI_YAML)
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    run_dir = os.path.join(work, "run")
+    argv = ["--config", yaml_path, "--workdir", run_dir, "--device", device]
+
+    # each validation timed on the host's clock (it ends on the host)
+    val_s = []
+    real_validate = Trainer.validate
+
+    def timed_validate(self):
+        t = time.perf_counter()
+        out = real_validate(self)
+        val_s.append(time.perf_counter() - t)
+        return out
+
+    def run(extra):
+        with warnings.catch_warnings(record=True) as caught, \
+                patched(Trainer, "validate", timed_validate):
+            warnings.simplefilter("always")
+            reset_launches()
+            t = time.perf_counter()
+            rc = cli_train.main(argv + extra)
+            wall = time.perf_counter() - t
+            launches = read_launches()
+        return rc, wall, launches, [f"{w.category.__name__}: {w.message}"
+                                    for w in caught]
+
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+
+    def saved_epochs():
+        return sorted(load_checkpoint(os.path.join(ckpt_dir, d))[0]["epoch"]
+                      for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+
+    rc1, wall1, launches1, warned1 = run(["--profile"])
+    n_val = -(-CLI_VAL_IMAGES // CLI_VAL_BATCH)
+    steps = CLI_TRAIN_IMAGES // CLI_TRAIN_BATCH
+    epochs_saved = saved_epochs()
+    best = [d for d in os.listdir(os.path.join(ckpt_dir, "best"))
+            if d.startswith("step_")]
+    log_path = os.path.join(run_dir, "logs", "metrics.jsonl")
+    with open(log_path) as f:
+        rows1 = [json.loads(line) for line in f]
+    train_rows = [r for r in rows1 if "train/total_loss" in r]
+    val_rows = [r for r in rows1 if "val/mAP" in r]
+    train_keys = {"train/heatmap_loss", "train/box_2d_loss", "train/total_loss",
+                  "train/lr", "train/images_per_sec"}
+    finite = all(np.isfinite(v) for r in rows1 for k, v in r.items()
+                 if k != "time")
+    # the CLI's step: the host clock between consecutive logged steps of
+    # the last epoch (each log reads the losses, so each step ends synced)
+    last = [r["time"] for r in train_rows[-steps:]]
+    step_ms = float(np.median(np.diff(last))) * 1e3
+    traces = os.listdir(os.path.join(ckpt_dir, "profile"))
+    trace_path = os.path.join(ckpt_dir, "profile", traces[0]) if traces else None
+    kernel_events, kernel_us = 0, 0.0
+    if trace_path:
+        with open(trace_path) as f:
+            events = [e for e in json.load(f).get("traceEvents", [])
+                      if e.get("cat") == "kernel"]
+        kernel_events = len(events)
+        kernel_us = sum(float(e.get("dur", 0)) for e in events)
+        del events
+    diag = [w for w in warned1 if "diagnostic logging" in w]
+    checks1 = {
+        "rc": rc1 == 0,
+        "config_yaml": os.path.isfile(os.path.join(run_dir, "config.yaml")),
+        "epoch_checkpoints": epochs_saved == list(range(1, CLI_EPOCHS + 1)),
+        "best": len(best) == 1,
+        "train_keys": all(train_keys <= set(r) for r in train_rows)
+        and len(train_rows) == CLI_EPOCHS * steps,
+        "val_keys": [set(k for k in r if k.startswith("val/")) for r in val_rows]
+        == [{f"val/{k}" for k in COCO_KEYS}] * CLI_EPOCHS,
+        "finite": finite,
+        "profile_trace_kernels": kernel_events > 0,
+        "peak_launches": launches1["peak_class_scores_cuda"] == CLI_EPOCHS * n_val,
+        # a failed diagnostic warns once a run and training goes on
+        "diagnostics_warned_at_most_once": len(diag) <= 1,
+    }
+
+    # resume: one more epoch, the steps continuing the first run's
+    rc2, wall2, launches2, warned2 = run(["--max-epochs", str(CLI_EPOCHS + 1)])
+    with open(log_path) as f:
+        rows2 = [json.loads(line) for line in f][len(rows1):]
+    resumed_steps = [r["step"] for r in rows2 if "train/total_loss" in r]
+    epochs_after = saved_epochs()
+    checks2 = {
+        "rc": rc2 == 0,
+        "one_epoch_continuing": resumed_steps == list(
+            range(CLI_EPOCHS * steps + 1, (CLI_EPOCHS + 1) * steps + 1)),
+        "epoch_checkpoint": epochs_after[-1] == CLI_EPOCHS + 1,
+        "validated_once": sum("val/mAP" in r for r in rows2) == 1,
+        "peak_launches": launches2["peak_class_scores_cuda"] == n_val,
+        "diagnostics_warned_at_most_once": sum(
+            "diagnostic logging" in w for w in warned2) <= 1,
+    }
+
+    # the packed loader alone, one epoch after a warm one (page cache)
+    loader = PackedLoader(train_dir, batch_size=CLI_TRAIN_BATCH, shuffle=True,
+                          flip_p=0.5)
+    for _ in loader:
+        pass
+    t = time.perf_counter()
+    n_batches = sum(1 for _ in loader)
+    loader_ms = (time.perf_counter() - t) / n_batches * 1e3
+
+    # serving from the best checkpoint, bf16, one batch of the val pack
+    best_pred = build_centernet(os.path.join(ckpt_dir, "best"), device=device)
+    pred = CenterNetPredictor(best_pred.task, image_size=best_pred.image_size,
+                              mean=best_pred.mean, std=best_pred.std,
+                              compute_dtype="bfloat16", device=device)
+    images = val["image"][:CLI_VAL_BATCH]
+    reset_launches()
+    dets = pred.gather_detection2d(images)
+    launches3 = read_launches()
+    plain = decode_vs_plain(pred, images)
+    checks3 = {
+        "shapes": dets["bboxes"].shape
+        == (CLI_VAL_BATCH, pred.task.num_detections, 4),
+        "finite": all(bool(np.isfinite(dets[k]).all())
+                      for k in ("bboxes", "scores")),
+        "peak_maps_equal_plain": plain["peak_maps_equal_plain"],
+        "peak_launches": launches3["peak_class_scores_cuda"] == 1,
+    }
+    try:
+        import cv2  # noqa: F401  (the tools read image files)
+    except ImportError:
+        tools, checks4, launches4 = {"skipped": "no OpenCV"}, {}, {}
+    else:
+        tools, checks4, launches4 = cli_tools(
+            work, os.path.join(ckpt_dir, "best"), val, reset_launches,
+            read_launches, device)
+    emit({"phase": "cli_main_path", "card": card, "config": CLI_YAML,
+          "dtype": "bfloat16", "image_size": SIZE,
+          "train_images": CLI_TRAIN_IMAGES, "train_batch": CLI_TRAIN_BATCH,
+          "val_images": CLI_VAL_IMAGES, "val_batch": CLI_VAL_BATCH,
+          "epochs": CLI_EPOCHS, "steps_per_epoch": steps,
+          "pack_s": pack_s, "pack_MB": pack_mb,
+          "train_images_per_s": CLI_TRAIN_BATCH / step_ms * 1e3,
+          "train_step_ms": step_ms,
+          "logged_images_per_sec": [r["train/images_per_sec"]
+                                    for r in train_rows[steps - 1::steps]],
+          "loader_ms_per_batch": loader_ms,
+          "loader_share_of_step": loader_ms / step_ms,
+          "val_s": val_s, "first_run_s": wall1, "resume_run_s": wall2,
+          "val_metrics": {k: v for k, v in val_rows[-1].items()
+                          if k.startswith("val/")} if val_rows else None,
+          "last_losses": {k: v for k, v in train_rows[-1].items()
+                          if k.endswith("_loss")} if train_rows else None,
+          "profile_trace": trace_path and os.path.basename(trace_path),
+          "profile_trace_MB": trace_path and os.path.getsize(trace_path) / 1e6,
+          "profile_kernel_events": kernel_events,
+          # the first epoch's kernels (under the profiler), a step
+          "profile_device_ms_per_step": kernel_us / 1e3 / steps,
+          "warnings": {"train": dict(collections.Counter(warned1)),
+                       "resume": dict(collections.Counter(warned2))},
+          "launches": {"train": launches1, "resume": launches2,
+                       "serve": launches3, "tools": launches4},
+          "checks": {"train": checks1, "resume": checks2, "serve": checks3,
+                     "tools": checks4},
+          "tools": tools,
+          "serve_plain": plain, "phase_s": time.perf_counter() - t_phase})
+    failed = [f"{part}.{k}" for part, c in (("train", checks1), ("resume", checks2),
+                                            ("serve", checks3), ("tools", checks4))
+              for k, ok in c.items() if not ok]
+    if failed:
+        raise AssertionError(f"cli main path checks failed: {failed}")
+    shutil.rmtree(work, ignore_errors=True)
+    del best_pred, pred
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return (launches1["peak_class_scores_cuda"] + launches2["peak_class_scores_cuda"]
+            + launches3["peak_class_scores_cuda"] + sum(launches4.values()))
 
 
 def main() -> int:
@@ -2157,6 +2564,10 @@ def main() -> int:
 
     # ---- 5e. validation: COCO in Trainer.fit, MOT in Trainer.validate -------
     path_launches["peak_class_scores_cuda"] += validation_phases(
+        card, reset_launches, read_launches)
+
+    # ---- 5f. the train CLI on packs, resumed, served from best/ ------------
+    path_launches["peak_class_scores_cuda"] += cli_phases(
         card, reset_launches, read_launches)
 
     # ---- 6. forward parity on the card ---------------------------------

@@ -435,6 +435,11 @@ def test_build_dataset_and_loader_equal_jax(coco_png, extra):
 
 
 def test_builder_registry_and_packed():
+    """The same registry; `type: packed` goes to the packed cache in both
+    builders, so a missing pack fails alike (the packed branch itself is
+    held in test_torch_port_packed.py)."""
     assert set(t_data.DATASETS) == set(j_data.DATASETS)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_data.loader_from_config({"type": "packed", "data_dir": "x"}, train=True)
+    for data in (t_data, j_data):
+        with pytest.raises(FileNotFoundError, match="meta.json"):
+            data.builder.loader_from_config(
+                {"type": "packed", "data_dir": "x"}, train=True)

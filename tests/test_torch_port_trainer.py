@@ -92,8 +92,8 @@ def test_fit_resume_equals_uninterrupted(tmp_path):
     batches = _batches()
     log_dir = tmp_path / "logs"
     # TensorBoard is left out: its import aborts a process that has
-    # imported jaxlib; a backend that is not ported is skipped with a warning
-    with pytest.warns(UserWarning, match="not ported"):
+    # imported jaxlib; wandb, not installed here, is skipped with a warning
+    with pytest.warns(UserWarning, match="wandb backend unavailable"):
         full_trainer = _trainer(batches, ckpt_dir=str(tmp_path / "full"),
                                 log_dir=str(log_dir),
                                 logger_config={"backends": ["wandb"]})
@@ -191,11 +191,12 @@ def test_checkpoint_serves_and_restores(tmp_path):
 
 def test_trainer_options():
     batches = _batches(3)
-    # validation is ported (tests/test_torch_port_validation.py); the image
-    # diagnostics are not, and their option raises
+    # validation is ported (tests/test_torch_port_validation.py), and the
+    # image diagnostics (tests/test_torch_port_diagnostics.py), on by
+    # default as in the JAX package
     assert _trainer(batches, val_loader=batches).val_loader is batches
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _trainer(batches, diagnostics=True)
+    assert _trainer(batches).diagnostics is True
+    assert _trainer(batches, diagnostics=False).diagnostics is False
     assert _trainer(batches, val_check_interval=0.5).val_check_steps == 1
     assert _trainer(batches, val_check_interval=2).val_check_steps == 2
     assert _trainer(batches, val_check_interval=1.0).val_check_steps is None

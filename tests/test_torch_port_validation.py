@@ -492,5 +492,15 @@ def test_port_loader_feeds_validation(coco_dir):
 
 
 def test_diagnostics_option():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_trainer(CenterNet(**SMALL), diagnostics=True)
+    """On by default, as in the JAX package: the first validation batch's
+    diagnostics run inside `validate()` (here with no logging backend) and
+    leave the metrics as they were without them."""
+    trainer = port_trainer(CenterNet(**SMALL), val=det_batches(11, 2))
+    assert trainer.diagnostics is True
+    seen = []
+    real = trainer._log_prediction_diagnostic
+    trainer._log_prediction_diagnostic = lambda *a: seen.append(a) or real(*a)
+    with_diag = trainer.validate()
+    assert len(seen) == 1 and not trainer._diag_warned
+    trainer.diagnostics = False
+    assert trainer.validate() == with_diag and len(seen) == 1
