@@ -14,10 +14,12 @@ validates with the COCO protocol or the MOT metrics of `eval/` on batches
 from the readers, transforms and threaded loader of `data/`); FairMOT
 tracking in `models/fairmot.py` (the ReID head and its train step) and
 `models/tracker.py` (the host tracker, on the C++ Hungarian solver of
-`native/`), served by the predictor's `track_stream`. The command-line
-entry points are in `cli/` (`python -m centernet_lightning_torch.cli.train
---config configs/centernet.yaml`, and `pack_dataset`, `validate`, `detect`,
-`track`).
+`native/`), served by the predictor's `track_stream`. Int8 serving is
+`quantize.py` behind `CenterNetPredictor.quantize` (int8 products through
+`torch._int_mm`). The command-line entry points are in `cli/` (`python -m
+centernet_lightning_torch.cli.train --config configs/centernet.yaml`, and
+`pack_dataset`, `validate`, `detect`, `track`, `serve`, `export`,
+`convert_checkpoint`).
 
 Entry points default to `device="cuda"` and never fall back to the CPU;
 pass `device="cpu"` explicitly to run the plain PyTorch versions.
@@ -25,7 +27,9 @@ pass `device="cpu"` explicitly to run the plain PyTorch versions.
 
 __version__ = "0.1.0"
 
-from .api import CenterNetPredictor, build_centernet  # noqa: E402
+from .api import (CenterNetPredictor, QuantizedCenterNetPredictor,  # noqa: E402
+                  build_centernet)
 from .models.centernet import CenterNet  # noqa: E402
 
-__all__ = ["CenterNet", "CenterNetPredictor", "build_centernet", "__version__"]
+__all__ = ["CenterNet", "CenterNetPredictor", "QuantizedCenterNetPredictor",
+           "build_centernet", "__version__"]

@@ -36,7 +36,7 @@ from .train.config import load_config, normalize_config
 from .utils import transfer
 from .utils.viz import draw_boxes
 
-__all__ = ["CenterNetPredictor", "build_centernet"]
+__all__ = ["CenterNetPredictor", "QuantizedCenterNetPredictor", "build_centernet"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -408,10 +408,48 @@ class CenterNetPredictor:
                             cv2.cvtColor(annotated, cv2.COLOR_RGB2BGR))
         return out
 
-    def quantize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "quantize is ported with the serving and int8 slice "
-            "(ROADMAP Queue 1 item 6)")
+    def quantize(self, calibration_images, exclude=None
+                 ) -> "QuantizedCenterNetPredictor":
+        """Calibrate and return an int8-serving predictor (quantize.py).
+
+        calibration_images: one batch or a list of batches (uint8 raw or
+        preprocessed float, NHWC) like the serving inputs; each is prepared
+        exactly as a served batch is. The returned predictor has the same
+        API, with every target convolution in int8 (on the card through
+        `torch._int_mm`); this predictor's float model is left as it is.
+        """
+        from .quantize import default_exclude, quantize_model
+
+        batches = (list(calibration_images)
+                   if isinstance(calibration_images, (list, tuple))
+                   else [calibration_images])
+        with torch.no_grad():   # the copy's weights must be no inference tensors
+            prepped = [self.prepare_images(b) for b in batches]
+            qmodel = quantize_model(self.model, prepped,
+                                    exclude=exclude or default_exclude)
+        return QuantizedCenterNetPredictor(self, qmodel)
+
+
+class QuantizedCenterNetPredictor(CenterNetPredictor):
+    """int8-serving predictor made by `CenterNetPredictor.quantize()`.
+
+    The same API as the float predictor (detection, tracking, the folder
+    entry points and the two-step `__call__`), on a quantized copy of the
+    model (`quantize.quantize_model`); `act_scales` holds the calibrated
+    activation scales. `__call__(train=True)` stays the float forward of
+    the predictor it was made from: int8 weights carry no gradients.
+    """
+
+    def __init__(self, base: CenterNetPredictor, qmodel: torch.nn.Module):
+        self.__dict__.update(base.__dict__)
+        self.model = qmodel
+        self.act_scales = qmodel.act_scales
+        self._float = base
+
+    def __call__(self, images, train: bool = False):
+        if train:
+            return self._float(images, train=True)
+        return super().__call__(images)
 
 
 def build_centernet(

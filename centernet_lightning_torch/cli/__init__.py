@@ -1,14 +1,22 @@
 """Command-line entry points (ports of the root train.py and of
-tools/{pack_dataset,validate,detect,track}.py), each run as
-`python -m centernet_lightning_torch.cli.<name> --help`. They run on the
-card (`--device cuda`, the default) unless `--device cpu` is passed."""
+tools/{pack_dataset,validate,detect,track,serve,export,convert_checkpoint}.py),
+each run as `python -m centernet_lightning_torch.cli.<name> --help`. They
+run on the card (`--device cuda`, the default) unless `--device cpu` is
+passed."""
 
-__all__ = ["refuse_quantize"]
+__all__ = ["read_class_names"]
 
 
-def refuse_quantize(n: int) -> None:
-    """`--quantize N` with N > 0 asks for int8 serving, which the port does
-    not have yet: exit non-zero before anything is served."""
-    if n > 0:
-        raise SystemExit("--quantize: int8 serving is not ported yet "
-                         "(ROADMAP Queue 1 item 6); nothing was served")
+def read_class_names(path):
+    """Class names from a json list or a text file of one name a line
+    (`--class-names` of detect and serve); None without a path."""
+    if not path:
+        return None
+    import json
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return [line.strip() for line in text.splitlines() if line.strip()]

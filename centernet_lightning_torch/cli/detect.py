@@ -6,6 +6,7 @@ with `--save-images`, annotated copies of the images.
         --checkpoint runs/coco/checkpoints --images photos/ \
         --out /tmp/dets --score-threshold 0.3 --save-images
 
+`--quantize N` serves the model in int8, calibrated on the first N images.
 Reading and writing the images needs OpenCV.
 """
 from __future__ import annotations
@@ -13,9 +14,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 from typing import Optional, Sequence
 
-from . import refuse_quantize
+from . import read_class_names
 
 __all__ = ["main"]
 
@@ -37,11 +39,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="optional json/txt file with one class name per "
                              "line (annotation labels)")
     parser.add_argument("--quantize", type=int, default=0, metavar="N",
-                        help="int8 serving; not ported yet (exits non-zero)")
+                        help="serve int8, calibrated on the first N images")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    refuse_quantize(args.quantize)
 
     import numpy as np
 
@@ -53,16 +54,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         checkpoint=args.checkpoint if args.config else None,
         device=args.device,
     )
+    if args.quantize > 0:
+        from ..quantize import load_calibration_images
 
-    class_names = None
-    if args.class_names:
-        with open(args.class_names) as f:
-            text = f.read()
-        try:
-            class_names = json.loads(text)
-        except json.JSONDecodeError:
-            class_names = [line.strip() for line in text.splitlines()
-                           if line.strip()]
+        calib = load_calibration_images(args.images, args.quantize,
+                                        predictor.image_size)
+        predictor = predictor.quantize(calib)
+        print(f"int8 serving: calibrated on {len(calib)} images",
+              file=sys.stderr)
+
+    class_names = read_class_names(args.class_names)
 
     dets = predictor.inference_detection(
         args.images, batch_size=args.batch_size,

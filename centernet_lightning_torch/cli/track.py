@@ -9,7 +9,8 @@ ground-truth tree.
         --eval-gt datasets/MOT17/train --seq MOT17-04 \
         --tracker detection_threshold=0.3
 
-Reading the frames needs OpenCV.
+`--quantize N` serves the model in int8, calibrated on the first N
+frames. Reading the frames needs OpenCV.
 """
 from __future__ import annotations
 
@@ -17,9 +18,8 @@ import argparse
 import json
 import os
 import shutil
+import sys
 from typing import Optional, Sequence
-
-from . import refuse_quantize
 
 __all__ = ["main"]
 
@@ -52,7 +52,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--tracker", nargs="*", metavar="KEY=VALUE",
                         help="tracker overrides, e.g. detection_threshold=0.3")
     parser.add_argument("--quantize", type=int, default=0, metavar="N",
-                        help="int8 serving; not ported yet (exits non-zero)")
+                        help="serve int8, calibrated on the first N frames")
     parser.add_argument("--eval-gt", default=None,
                         help="MOT GT root (<root>/<seq>/gt/gt.txt) to score "
                              "the results against")
@@ -62,7 +62,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    refuse_quantize(args.quantize)
 
     from ..api import build_centernet
 
@@ -71,6 +70,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         checkpoint=args.checkpoint if args.config else None,
         device=args.device,
     )
+    if args.quantize > 0:
+        from ..quantize import load_calibration_images
+
+        calib = load_calibration_images(args.frames, args.quantize,
+                                        predictor.image_size)
+        predictor = predictor.quantize(calib)
+        print(f"int8 serving: calibrated on {len(calib)} frames",
+              file=sys.stderr)
     out = predictor.inference_tracking(
         args.frames, batch_size=args.batch_size, save_dir=args.out,
         save_results=True, save_images=args.save_images,

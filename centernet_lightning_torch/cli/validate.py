@@ -6,8 +6,9 @@ COCO metrics as one JSON line.
         --img-dir .../val2017 --ann-json .../instances_val2017.json
 
 A DCN model's offsets are audited on the first batch first (stderr), so
-a clamped engine cannot cost accuracy unseen. Reading the images needs
-OpenCV.
+a clamped engine cannot cost accuracy unseen. `--quantize N` serves the
+model in int8, calibrated on the loader's first N batches. Reading the
+images needs OpenCV.
 """
 from __future__ import annotations
 
@@ -15,8 +16,6 @@ import argparse
 import json
 import sys
 from typing import Optional, Sequence
-
-from . import refuse_quantize
 
 __all__ = ["main"]
 
@@ -35,11 +34,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help="also write a COCO results-format json of the "
                              "predictions")
     parser.add_argument("--quantize", type=int, default=0, metavar="N",
-                        help="int8 serving; not ported yet (exits non-zero)")
+                        help="serve int8, calibrated on the first N batches")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    refuse_quantize(args.quantize)
 
     import numpy as np
 
@@ -70,6 +68,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         stats = audit_dcn_offsets(predictor.task,
                                   predictor.prepare_images(calib_batch["image"]))
         print(format_dcn_audit(stats, dcn_engine_displacement(predictor.task)),
+              file=sys.stderr)
+
+    if args.quantize > 0:
+        calib = []
+        for batch in loader:
+            calib.append(batch["image"])
+            if len(calib) >= args.quantize:
+                break
+        predictor = predictor.quantize(calib)
+        print(f"int8 serving: calibrated on {len(calib)} batches",
               file=sys.stderr)
 
     evaluator = CocoEvaluator(predictor.task.num_classes)

@@ -23,13 +23,23 @@ from torch import nn
 
 from ..layers import batch_norm
 
-__all__ = ["BasicBlock", "Bottleneck", "ResNet",
+__all__ = ["BasicBlock", "Bottleneck", "ResNet", "StemConv",
            "resnet18", "resnet34", "resnet50", "resnet101"]
 
 
 def _conv(in_c: int, out_c: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(in_c, out_c, k, stride=stride, padding=k // 2,
                      bias=False)
+
+
+class StemConv(nn.Conv2d):
+    """The 7x7 / stride-2 stem convolution (padding 3, no bias). A class of
+    its own as in the JAX package, whose `StemConv` is no flax `nn.Conv`:
+    int8 serving (quantize.py) leaves it in float there, and so here."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__(in_channels, out_channels, 7, stride=2, padding=3,
+                         bias=False)
 
 
 def _downsample(in_c: int, out_c: int, stride: int) -> nn.Sequential:
@@ -97,8 +107,7 @@ class ResNet(nn.Module):
         self.stage_sizes = tuple(stage_sizes)
         self.frozen_stages = int(frozen_stages)
         self.width = width
-        self.conv1 = nn.Conv2d(in_channels, width, 7, stride=2, padding=3,
-                               bias=False)
+        self.conv1 = StemConv(in_channels, width)
         self.bn1 = batch_norm(width)
         in_c = width
         for stage, num_blocks in enumerate(self.stage_sizes):

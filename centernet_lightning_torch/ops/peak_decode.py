@@ -3,7 +3,10 @@ uses them (port of ops/pallas_decode.py).
 
 `peak_class_scores_cuda` launches `csrc/peak_decode.cu` on a CUDA tensor
 and runs `peak_class_scores_reference` on a CPU tensor; there is no other
-fallback. Both compute, for an NHWC heatmap, the 3x3 pseudo-NMS mask with
+fallback. While a program is traced (`torch.export`, cli/export.py) it goes
+through the operator `torch.ops.centernet_lightning.peak_class_scores`
+(`peak_class_scores_op`) instead, so the exported program keeps the kernel.
+Both compute, for an NHWC heatmap, the 3x3 pseudo-NMS mask with
 neutral edges (0 for probabilities, -1e30 for logits), then the per-pixel
 class max and first-index argmax, in f32; a NaN in a class's window gives
 that class the neutral, as in the JAX package. The kernel reads the head's
@@ -24,7 +27,8 @@ import torch.nn.functional as F
 
 from . import decode as decode_ops
 
-__all__ = ["peak_class_scores_cuda", "peak_class_scores_reference",
+__all__ = ["peak_class_scores_cuda", "peak_class_scores_op",
+           "peak_class_scores_reference",
            "decode_detections_fused", "launch_plan", "plan_for", "PeakPlan",
            "kernel_info", "KERNEL_SOURCE", "REPLACES"]
 
@@ -181,19 +185,47 @@ def plan_for(heatmap: torch.Tensor) -> PeakPlan:
 def peak_class_scores_cuda(heatmap: torch.Tensor, from_logits: bool = False):
     """Fused 3x3 pseudo-NMS + class max/argmax.
 
-    heatmap: (N, H, W, C) contiguous, float32 or bfloat16. On a CUDA tensor
-    this launches the kernel (counted in `peak_class_scores_cuda.launches`)
-    or raises; on a CPU tensor it returns `peak_class_scores_reference`.
-    Returns (scores f32, labels int32), each (N, H*W).
+    heatmap: (N, H, W, C) contiguous, float32 or bfloat16. On a CUDA
+    tensor this launches the kernel (counted in
+    `peak_class_scores_cuda.launches`) or raises; on a CPU tensor it returns
+    `peak_class_scores_reference`. A traced tensor (a fake or functional
+    tensor of `torch.export`, or under `torch.compile`) goes through the
+    operator `centernet_lightning::peak_class_scores`, which dispatches to
+    the same two. Returns (scores f32, labels int32), each (N, H*W).
     """
     if heatmap.dim() != 4:
         raise ValueError(f"heatmap must be (N, H, W, C), got {tuple(heatmap.shape)}")
     if heatmap.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"heatmap must be float32 or bfloat16, got {heatmap.dtype}")
+    if heatmap.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no peak kernel for device {heatmap.device}")
+    if type(heatmap) is not torch.Tensor or torch.compiler.is_compiling():
+        # traced: the operator, on the map detached (the kernel has no
+        # backward); eager calls skip the dispatcher's hop
+        return peak_class_scores_op(heatmap.detach(), from_logits)
     if heatmap.device.type == "cpu":
         return peak_class_scores_reference(heatmap, from_logits=from_logits)
-    if heatmap.device.type != "cuda":
-        raise ValueError(f"no peak kernel for device {heatmap.device}")
+    return _peak_launch(heatmap, from_logits)
+
+
+# The peak stage as an operator that `torch.export` keeps in a graph
+# (loading a saved program needs `import centernet_lightning_torch`, which
+# registers it): the plain twin on the CPU, the kernel on CUDA, shapes on
+# Meta (what tracing runs). `torch.library.custom_op` would import torch's
+# tracing stack (some 800 modules) at the first call, and the larger heap
+# slowed the host-bound tracking loop's garbage collection.
+_LIB = torch.library.Library("centernet_lightning", "DEF")
+_LIB.define("peak_class_scores(Tensor heatmap, bool from_logits) -> (Tensor, Tensor)")
+
+
+def _peak_meta(heatmap, from_logits):
+    n, h, w, _ = heatmap.shape
+    return (heatmap.new_empty((n, h * w), dtype=torch.float32),
+            heatmap.new_empty((n, h * w), dtype=torch.int32))
+
+
+def _peak_launch(heatmap, from_logits):
+    """Launch csrc/peak_decode.cu on `heatmap`'s current stream."""
     if not heatmap.is_contiguous():
         raise ValueError("heatmap must be contiguous NHWC")
     n, h, w, c = heatmap.shape
@@ -218,6 +250,10 @@ def peak_class_scores_cuda(heatmap: torch.Tensor, from_logits: bool = False):
 
 
 peak_class_scores_cuda.launches = 0
+_LIB.impl("peak_class_scores", peak_class_scores_reference, "CPU")
+_LIB.impl("peak_class_scores", _peak_launch, "CUDA")
+_LIB.impl("peak_class_scores", _peak_meta, "Meta")
+peak_class_scores_op = torch.ops.centernet_lightning.peak_class_scores
 
 
 def decode_detections_fused(

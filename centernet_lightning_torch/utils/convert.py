@@ -45,7 +45,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-__all__ = ["variables_to_state_dict"]
+__all__ = ["module_name", "variables_to_state_dict"]
 
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
          "mean": "running_mean", "var": "running_var",
@@ -161,3 +161,14 @@ def variables_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor
             if path[-1] == "mean":
                 sd[f"{key.rsplit('.', 1)[0]}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def module_name(flax_path: str, params: Dict[str, Any]) -> str:
+    """The port's module name of the flax module at `flax_path`
+    ("backbone/stem_conv"), a scope of the `params` tree (how the JAX
+    package's quantize.py keys its scales)."""
+    path = tuple(flax_path.split("/"))
+    node = params
+    for name in path:
+        node = node[name]
+    return _torch_key(path + (next(iter(node)),), params).rsplit(".", 1)[0]

@@ -159,6 +159,35 @@ with its seconds (`phase_s`); any failure exits non-zero:
      launch a batch each, the metrics' keys, finite; the CLI's train
      images/s and step ms, the packed loader's host ms a batch alone,
      each validation's seconds;
+     then int8 serving and deployment (`serving_phases`): `int8_main_path`,
+     the flagship (ResNet-34 FPN-256, heads 256 x 3, 80 classes, 512^2,
+     bf16) quantized through `predictor.quantize` on 2 seeded uint8
+     batches of 64: for every distinct int8 conv of the path, and the
+     stem's 7x7 / s2 (a float StemConv, as in the JAX package), the
+     card's int32 accumulators (`torch._int_mm`) == the plain version's
+     on the same int8 inputs (the heads' 3x3 at 16 images, in chunks);
+     the card's int8 model against its plain twin in f32 (same scales,
+     TF32 off) within 1e-5 of the heads' largest magnitude; int8 scores
+     within 3e-2 of bf16; one peak launch a batch and every int8 conv
+     on `_int_mm`; `int8_times`: int8 and bf16 images/s at b64 (the
+     engines in turn) with the int8 conv's stages (quantize, im2col,
+     int_mm, dequant; profiler ranges) and both profiles; `serve_path`:
+     cli/serve.py's DetectionService and HTTP server on 127.0.0.1, port
+     0, over the flagship at b8, 32 PNG requests from 8 client threads
+     after a warm-up round, then 8 to an int8 service: every answer
+     equal to the predictor's detections of the batch it was served in,
+     fewer batches than requests, one peak launch a batch, p50 / p99
+     latency; `export_path`: the serving program exported with
+     torch.export at b1 and b8, bf16 and int8, loaded back and run: the
+     peak op (and `_int_mm` in int8) in the graph, detections bitwise
+     equal to the predictor's, one peak launch a call through the loaded
+     program; `int8_tracking`: configs/mot_tracking.yaml at 608 x 1088,
+     b8, 160 seeded frames at depth 1 in int8 and in bf16: frames/s,
+     device and association ms a frame, one peak launch a batch, and the
+     count of frames whose track ids differ (no check); `convert_path`:
+     a seeded Lightning-style checkpoint of the flagship through
+     cli.convert_checkpoint, then build_centernet on its directory: the
+     forward (f32, TF32 off) bitwise equal to `load_torch_checkpoint`'s;
   6. forward parity: the same f32 weights on the card (TF32 off) and on the
      CPU at batch 2, 512x512, for ResNet-34 FPN-256, for the DCN model
      on both DCN engines, and for centernet.yaml, helmet.yaml and the
@@ -388,6 +417,8 @@ def device_breakdown(fn, iters: int, wall_ms: float, top: int = 15) -> dict:
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue               # host ops repeat their kernels' device time
+        if e.key.startswith("int8_conv."):
+            continue               # quantize.py's ranges span kernels listed apart
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -1797,6 +1828,644 @@ def cli_phases(card, reset_launches, read_launches, device="cuda"):
             + launches3["peak_class_scores_cuda"] + sum(launches4.values()))
 
 
+# ---- int8 serving and deployment (cli/serve.py, cli/export.py,
+# cli/convert_checkpoint.py) ------------------------------------------------
+FLAGSHIP_CFG = {"num_classes": 80, "backbone": "resnet34", "neck": "FPN",
+                "neck_config": {"out_channels": 256},
+                "head_config": {"width": 256, "depth": 3},
+                "num_detections": 100, "image_size": [SIZE, SIZE]}
+INT8_CALIB_BATCHES = 2          # seeded uint8 batches of BATCH images
+INT8_SCORE_TOL = 3e-2           # the JAX predictor test's score tolerance
+INT8_JAX_HEAD_TOL = 0.05        # the JAX package's int8-vs-float bound, x max |head|
+INT8_PLAIN_TOL = 1e-5           # card vs plain int8 model, f32, x max |head|
+INT8_CHECK_IMAGES, INT8_CHUNK_IMAGES = 2, 16
+INT8_HEAD_IMAGES = 4            # images of the head comparisons (b), (c)
+INT8_TRACK_FRAMES = 160
+SERVE_BATCH, SERVE_REQUESTS, SERVE_CLIENTS, SERVE_INT8_REQUESTS = 8, 256, 8, 256
+EXPORT_BATCHES = (1, 8)
+
+
+def conv_signature(m, x):
+    """(kernel, stride, C in, C out, H, W) of an Int8Conv2d call."""
+    return (m.kernel_size[0], m.stride[0], m.in_channels, m.out_channels,
+            x.shape[2], x.shape[3])
+
+
+def captured_int8_inputs(qmodel, x):
+    """One forward of `qmodel` on `x`: the input of the first call of each
+    distinct Int8Conv2d signature, {signature: (module, input)}."""
+    from centernet_lightning_torch.quantize import Int8Conv2d
+
+    seen = {}
+
+    def hook(m, args):
+        seen.setdefault(conv_signature(m, args[0]), (m, args[0]))
+
+    handles = [m.register_forward_pre_hook(hook) for m in qmodel.modules()
+               if isinstance(m, Int8Conv2d)]
+    try:
+        with torch.inference_mode():
+            qmodel(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def int32_vs_plain(x_q, w_q, stride, pads, groups=1):
+    """The card's int32 accumulators against the plain version's on the
+    same int8 inputs: (equal, max |diff|, entries)."""
+    from centernet_lightning_torch import quantize as tq
+
+    with torch.inference_mode():
+        got = tq.int8_conv_mm(x_q, w_q, stride, pads, (1, 1), groups)
+        want = tq.int8_conv_plain(x_q, w_q, stride, pads, (1, 1), groups)
+    torch.cuda.synchronize()
+    n, _, ho, wo = got.shape
+    k = w_q.shape[1] * w_q.shape[2] * w_q.shape[3]
+    per_chunk = max(1, tq.IM2COL_BYTES // (ho * wo * (-(-k // 8) * 8)))
+    return {"int32_equal": torch.equal(got, want),
+            "max_abs_diff": int((got - want).abs().max().item()),
+            "entries": got.numel(), "chunks": -(-n // per_chunk)}
+
+
+def stage_breakdown(fn, iters, wall_ms):
+    """Device ms a call of the int8 conv's stages (the profiler ranges of
+    quantize.py: quantize, im2col, int_mm, dequant), beside the whole
+    breakdown by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.key_averages():
+        if e.key.startswith("int8_conv."):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            stages[e.key.split(".", 1)[1]] = {"ms": us / iters / 1e3,
+                                              "calls": e.count / iters}
+    return stages
+
+
+def live_flagship(images):
+    """The seeded flagship in f32 with live outputs: BatchNorm statistics
+    from one train-mode pass over `images` (calibrate_bn), and the heatmap
+    bias shifted so that the median of the top-100 scores is 0.3. As drawn
+    (unit statistics) the heatmap logits spread so far that every top-100
+    score is within 1e-4 of 1, and no comparison of scores can fail.
+    Returns the predictor and the top-100 scores before and after."""
+    from centernet_lightning_torch import build_centernet
+
+    f32 = build_centernet({"model": dict(FLAGSHIP_CFG)}, seed=0)
+    raw = f32.gather_detection2d(images)["scores"]
+    calibrate_bn(f32, images)
+    median = float(np.median(f32.gather_detection2d(images)["scores"]))
+    with torch.no_grad():
+        f32.model.heads["heatmap"].out_conv.bias.add_(
+            float(np.log(0.3 / 0.7) - np.log(median / (1 - median))))
+    return f32, raw, f32.gather_detection2d(images)["scores"]
+
+
+def head_gaps(a, b):
+    """max |a - b| / max |b| of the heatmap and box heads, in f32."""
+    return {k: (a[k].float() - b[k].float()).abs().max().item()
+            / max(b[k].float().abs().max().item(), 1e-30)
+            for k in ("heatmap", "box_2d")}
+
+
+def int8_main_path(card, reset_launches, read_launches):
+    """`int8_main_path`: the flagship in bf16 (live outputs, `live_flagship`)
+    quantized on seeded batches, its conv shapes, its card-vs-plain model
+    check, its heads and detections against bf16, one peak launch a batch,
+    and both images/s. Returns the bf16 and int8 predictors and the peak
+    launches."""
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch import quantize as tq
+    from centernet_lightning_torch.api import QuantizedCenterNetPredictor
+
+    t_phase = time.perf_counter()
+    cfg = {"model": dict(FLAGSHIP_CFG, compute_dtype="bfloat16")}
+    gen = torch.Generator().manual_seed(21)
+    draw = lambda: torch.randint(0, 256, (BATCH, SIZE, SIZE, 3), generator=gen,  # noqa: E731
+                                 dtype=torch.uint8).numpy()
+    calib = [draw() for _ in range(INT8_CALIB_BATCHES)]
+    images = draw()
+    f32, raw_scores, live_scores = live_flagship(images)
+    pred = build_centernet(cfg, seed=0)
+    pred.model.load_state_dict(f32.model.state_dict())      # cast to bf16
+    t0 = time.perf_counter()
+    qpred = pred.quantize(calib)
+    calib_s = time.perf_counter() - t0
+    n_int8 = sum(isinstance(m, tq.Int8Conv2d) for m in qpred.model.modules())
+
+    # (d) the int8 main path, one batch: one peak launch
+    reset_launches()
+    tq.Int8Conv2d.card_calls = 0
+    t0 = time.perf_counter()
+    dets = qpred.gather_detection2d(images)
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    mm_calls = tq.Int8Conv2d.card_calls
+    ref = pred.gather_detection2d(images)
+    score_diff = float(np.abs(dets["scores"] - ref["scores"]).max())
+    finite = all(bool(np.isfinite(dets[k]).all()) for k in ("bboxes", "scores"))
+
+    # (a) every distinct int8 conv signature of the path, and the stem's
+    # 7x7 / s2 (a float StemConv in both packages, not a target), int32
+    # accumulators on the card == the plain version's on the same inputs
+    dev = torch.from_numpy(images).cuda()
+    x_small = pred.prepare_images(dev[:INT8_CHUNK_IMAGES])
+    seen = captured_int8_inputs(qpred.model, x_small)
+    shapes = []
+    for sig, (m, x) in sorted(seen.items()):
+        n = INT8_CHUNK_IMAGES if (sig[0], sig[2], sig[4]) == (3, 256, SIZE // 4) \
+            and sig[3] == 256 else INT8_CHECK_IMAGES
+        x_q = tq.quantize_activation(x[:n], m.x_scale)
+        shapes.append({"kernel": sig[0], "stride": sig[1], "c_in": sig[2],
+                       "c_out": sig[3], "hw": list(sig[4:]), "images": n,
+                       **int32_vs_plain(x_q, m.weight_oihw(), m.stride,
+                                        m.pads(x.shape[2], x.shape[3]))})
+    stem = pred.model.backbone.conv1
+    with torch.inference_mode():
+        xs = pred.prepare_images(dev[:INT8_CHECK_IMAGES]).permute(0, 3, 1, 2)
+        s_x = torch.tensor([xs.float().abs().max().item() / 127.0], device="cuda")
+        w_q = tq.quantize_conv_params(torch.nn.ModuleDict({"s": stem}),
+                                      {"s": 1.0})["s"]["w"].cuda()
+        x_q = tq.quantize_activation(xs, s_x)
+    shapes.append({"kernel": 7, "stride": 2, "c_in": 3, "c_out": stem.out_channels,
+                   "hw": [SIZE, SIZE], "images": INT8_CHECK_IMAGES,
+                   "stem_not_a_target": True,
+                   **int32_vs_plain(x_q, w_q, (2, 2), (3, 3, 3, 3))})
+    del seen, x_small
+
+    # (b) the card's int8 model against the plain version of the same
+    # quantized model (the same scales, f32 weights, TF32 off), heads
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        qf32 = tq.quantize_model(f32.model, act_scales=qpred.act_scales)
+        with torch.inference_mode():
+            x4 = f32.prepare_images(dev[:INT8_HEAD_IMAGES])
+            card_out = qf32(x4)
+            for m in qf32.modules():
+                if isinstance(m, tq.Int8Conv2d):
+                    m.plain = True
+            plain_out = qf32(x4)
+            float_out = f32.model(x4)
+        torch.cuda.synchronize()
+        vs_plain = {}
+        for key in ("heatmap", "box_2d"):
+            d = (card_out[key] - plain_out[key]).abs().max().item()
+            mag = plain_out[key].abs().max().item()
+            vs_plain[key] = {"max_abs_err": d, "max_abs": mag,
+                             "rel_to_max": d / max(mag, 1e-30),
+                             "bitwise_equal": torch.equal(card_out[key],
+                                                          plain_out[key])}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    # (c) int8 against bf16 on live heads. int8 serving (bf16) - bf16 serving
+    # = (int8 bf16 - int8 f32) + (int8 f32 - float f32) + (float f32 - bf16):
+    # the int8 scheme's own drift (plain int8 vs float, both f32: the JAX
+    # package's arithmetic, held to it on the CPU) plus bf16's drift, once
+    # in each model, all measured here on the same images. A wrong weight
+    # scale, bias or weight layout moves a head by about its own size
+    with torch.inference_mode():
+        xb = pred.prepare_images(dev[:INT8_HEAD_IMAGES])
+        bf16_out = pred.model(xb)
+        serve_gap = head_gaps(qpred.model(xb), bf16_out)
+    algo_gap = head_gaps(plain_out, float_out)
+    bf16_gap = head_gaps(bf16_out, float_out)
+    vs_bf16 = {k: {"int8_vs_bf16": serve_gap[k], "int8_scheme_f32": algo_gap[k],
+                   "bf16_vs_f32": bf16_gap[k],
+                   "bound": algo_gap[k] + 2 * bf16_gap[k],
+                   "within_jax_bound": serve_gap[k] < INT8_JAX_HEAD_TOL}
+               for k in serve_gap}
+    del f32, qf32, card_out, plain_out, float_out, bf16_out, x4, xb
+    torch.cuda.empty_cache()
+
+    checks = {"quantized_predictor": isinstance(qpred, QuantizedCenterNetPredictor),
+              "shapes_ok": dets["bboxes"].shape == (BATCH, 100, 4),
+              "finite": finite,
+              "int32_equal_every_shape": all(s["int32_equal"] for s in shapes),
+              "card_vs_plain_model": all(v["rel_to_max"] <= INT8_PLAIN_TOL
+                                         for v in vs_plain.values()),
+              "live_scores": float(np.min(live_scores)) < 0.9,
+              "heads_vs_bf16": all(v["int8_vs_bf16"] <= v["bound"]
+                                   for v in vs_bf16.values()),
+              "one_peak_launch": launches["peak_class_scores_cuda"] == 1,
+              "every_int8_conv_on_int_mm": mm_calls == n_int8}
+    emit({"phase": "int8_main_path", "card": card, "config": cfg["model"],
+          "batch": BATCH, "calibration_batches": INT8_CALIB_BATCHES,
+          "calibration_s": calib_s, "int8_convs": n_int8,
+          "float_convs": sum(type(m).__name__ in ("Conv2d", "StemConv",
+                                                  "SameConv2d")
+                             for m in qpred.model.modules()),
+          "first_call_s": first_s, "launches": launches,
+          "int8_card_calls": mm_calls, "conv_shapes": shapes,
+          "card_vs_plain_f32": vs_plain, "plain_tolerance": INT8_PLAIN_TOL,
+          "top100_scores_as_drawn": {"min": float(np.min(raw_scores)),
+                                     "median": float(np.median(raw_scores))},
+          "top100_scores_live": {"min": float(np.min(live_scores)),
+                                 "median": float(np.median(live_scores)),
+                                 "max": float(np.max(live_scores))},
+          "heads_vs_bf16": vs_bf16, "jax_head_bound": INT8_JAX_HEAD_TOL,
+          "max_score_diff_vs_bf16": score_diff, "jax_score_tolerance": INT8_SCORE_TOL,
+          "scores_within_jax_tolerance": score_diff <= INT8_SCORE_TOL,
+          "checks": checks, "phase_s": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"int8 main path checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+
+    # (e) images/s, int8 and bf16 in turn, and the int8 stages on the card
+    t_phase = time.perf_counter()
+    e2e = repeated_ms({"bfloat16": lambda: pred.detect(dev),
+                       "int8": lambda: qpred.detect(dev)}, reps=3, iters=5)
+    for t in e2e.values():
+        t["images_per_s"] = BATCH / t["median_ms"] * 1e3
+    int8_ms = e2e["int8"]["median_ms"]
+    emit({"phase": "int8_times", "card": card, "batch": BATCH,
+          "image_size": SIZE, "e2e": e2e,
+          "int8_over_bf16": e2e["int8"]["images_per_s"]
+          / e2e["bfloat16"]["images_per_s"],
+          "int8_stages": stage_breakdown(lambda: qpred.detect(dev), 2, int8_ms),
+          "int8_profile": device_breakdown(lambda: qpred.detect(dev), iters=2,
+                                           wall_ms=int8_ms, top=20),
+          "bf16_profile": device_breakdown(lambda: pred.detect(dev), iters=2,
+                                           wall_ms=e2e["bfloat16"]["median_ms"],
+                                           top=8),
+          "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_s": time.perf_counter() - t_phase})
+    del dev
+    torch.cuda.empty_cache()
+    return pred, qpred, launches["peak_class_scores_cuda"]
+
+
+def int8_tracking(card, reset_launches, read_launches):
+    """`int8_tracking`: configs/mot_tracking.yaml at 608 x 1088, b8,
+    quantized on two seeded batches of frames, over INT8_TRACK_FRAMES
+    frames at depth 1, beside the same stream in bf16. Returns the peak
+    launches of the int8 stream."""
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch.models.tracker import Tracker
+
+    t_phase = time.perf_counter()
+    cfg, tracker_cfg = tracking_config()
+    tracker_cfg["min_birth_age"] = 1
+    h, w = cfg["model"]["image_size"]
+    k = tracker_cfg["num_detections"]
+    thr = tracker_cfg["detection_threshold"]
+    frames = synth_frames(INT8_TRACK_FRAMES, h, w, TRACK_OBJECTS, seed=3)
+    pred = build_centernet(cfg, seed=0)
+    calibrate_bn(pred, frames[:TRACK_BATCH])
+    with torch.inference_mode():     # peaks' median at the threshold
+        scores = pred._gather_tracking_device(frames[:TRACK_BATCH],
+                                              num_detections=k)["scores"]
+        median = float(scores[scores > 0].median())
+    with torch.no_grad():
+        pred.model.heads["heatmap"].out_conv.bias.add_(
+            float(np.log(thr / (1 - thr)) - np.log(median / (1 - median))))
+    qpred = pred.quantize([frames[:TRACK_BATCH], frames[TRACK_BATCH:2 * TRACK_BATCH]])
+    n_batches = INT8_TRACK_FRAMES // TRACK_BATCH
+    run_stream(qpred, frames[:2 * TRACK_BATCH], tracker_cfg, 1)   # warm-up
+    run_stream(pred, frames[:2 * TRACK_BATCH], tracker_cfg, 1)
+    reset_launches()
+    wall_q, steps_q = run_stream(qpred, frames, tracker_cfg, 1)
+    launches = read_launches()
+    wall_f, steps_f = run_stream(pred, frames, tracker_cfg, 1)
+    differ = sum(a["track_ids"] != b["track_ids"] for a, b in zip(steps_q, steps_f))
+    dev_frames = pred.upload(frames[:TRACK_BATCH])
+    with torch.inference_mode():
+        device_ms = {name: cuda_ms(lambda p=p: p._gather_tracking_device(
+            dev_frames, num_detections=k), iters=10) / TRACK_BATCH
+            for name, p in (("int8", qpred), ("bfloat16", pred))}
+    decoded = [qpred.gather_tracking2d(b, num_detections=k)
+               for b, _ in track_batches(frames)]
+    tracker = Tracker(model=qpred.gather_tracking2d, **tracker_cfg)
+    t0 = time.perf_counter()
+    for d in decoded:
+        for i in range(TRACK_BATCH):
+            tracker.update(d["bboxes"][i], d["labels"][i], d["scores"][i],
+                           d["embeddings"][i])
+            tracker.frame += 1
+    assoc_ms = (time.perf_counter() - t0) / INT8_TRACK_FRAMES * 1e3
+    dets_q = float(np.mean([s["num_detections"] for s in steps_q]))
+    checks = {"frames": len(steps_q) == INT8_TRACK_FRAMES,
+              "one_peak_launch_a_batch":
+                  launches["peak_class_scores_cuda"] == n_batches,
+              "detections_enter_tracker": dets_q >= 1}
+    emit({"phase": "int8_tracking", "card": card, "config": TRACK_YAML,
+          "batch": TRACK_BATCH, "image_size": [h, w], "frames": INT8_TRACK_FRAMES,
+          "depth": 1, "int8_convs": len(qpred.act_scales),
+          "frames_per_s": {"int8": INT8_TRACK_FRAMES / wall_q,
+                           "bfloat16": INT8_TRACK_FRAMES / wall_f},
+          "device_ms_per_frame": device_ms,
+          "association_ms_per_frame_int8": assoc_ms,
+          "detections_into_tracker_per_frame": {
+              "int8": dets_q,
+              "bfloat16": float(np.mean([s["num_detections"] for s in steps_f]))},
+          "frames_whose_ids_differ_from_bf16": differ,
+          "launches": launches, "checks": checks,
+          "phase_s": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"int8 tracking checks failed: {checks}")
+    del pred, qpred, dev_frames, decoded, frames
+    torch.cuda.empty_cache()
+    return launches["peak_class_scores_cuda"]
+
+
+def serve_path(card, pred, qpred, reset_launches, read_launches):
+    """`serve_path`: cli/serve.py's DetectionService and HTTP server on
+    127.0.0.1 (port 0) over the flagship at b8: SERVE_REQUESTS PNG requests
+    from SERVE_CLIENTS client threads, then SERVE_INT8_REQUESTS to an int8
+    service. Every answer must equal the predictor's detections of the
+    batch it was served in; the batches must be fewer than the requests.
+    Returns the peak launches."""
+    import gc
+    import hashlib
+    import threading
+    import urllib.request
+
+    import cv2
+
+    from centernet_lightning_torch.cli.serve import DetectionService, make_server
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    originals = [rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+                 for _ in range(SERVE_REQUESTS)]
+    bodies = [cv2.imencode(".png", img[..., ::-1])[1].tobytes() for img in originals]
+    digest = lambda img: hashlib.sha1(np.ascontiguousarray(img).tobytes()).digest()  # noqa: E731
+    request_of = {digest(img): i for i, img in enumerate(originals)}
+    report, total = {}, 0
+    collections, gc_began = [], [0.0]   # (generation, start s, ms) a gc pass
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_began[0] = time.perf_counter()
+        else:
+            collections.append((info["generation"], gc_began[0],
+                                (time.perf_counter() - gc_began[0]) * 1e3))
+
+    for name, p, n_req in (("bfloat16", pred, SERVE_REQUESTS),
+                           ("int8", qpred, SERVE_INT8_REQUESTS)):
+        service = DetectionService(p, batch_size=SERVE_BATCH, max_wait_ms=5,
+                                   num_detections=100, score_threshold=0.0)
+        batches, runs = [], []          # runs: (start s, run ms)
+        real_run = service._run
+
+        def recording_run(batch, real_run=real_run, batches=batches, runs=runs):
+            t = time.perf_counter()
+            out = real_run(batch)
+            runs.append((t, (time.perf_counter() - t) * 1e3))
+            batches.append((batch.copy(), out))
+            return out
+
+        service._run = recording_run
+        service.start()
+        batches.clear()
+        server = make_server(service, "127.0.0.1", 0, model_info={"model": name})
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_port}/v1/detect"
+        answers, latency, sent = [None] * n_req, [None] * n_req, [None] * n_req
+
+        def client(c):
+            for i in range(c, n_req, SERVE_CLIENTS):
+                req = urllib.request.Request(url, data=bodies[i],
+                                             headers={"Content-Type": "image/png"})
+                sent[i] = time.perf_counter()
+                answers[i] = json.loads(urllib.request.urlopen(req, timeout=120).read())
+                latency[i] = (time.perf_counter() - sent[i]) * 1e3
+
+        # one round of requests first: the handler threads' and the card's
+        # first calls stay out of the timed latencies
+        warm = [threading.Thread(target=urllib.request.urlopen, args=(
+            urllib.request.Request(url, data=bodies[c],
+                                   headers={"Content-Type": "image/png"}),),
+            kwargs={"timeout": 120}) for c in range(SERVE_CLIENTS)]
+        for t in warm:
+            t.start()
+        for t in warm:
+            t.join(timeout=300)
+        batches.clear()
+        runs.clear()
+        collections.clear()
+        gc.callbacks.append(gc_timer)
+        reset_launches()
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        gc.callbacks.remove(gc_timer)
+        server.shutdown()
+        server.server_close()
+        service.stop()
+        # each answer against the predictor's detections of its batch
+        # (the same padded batch run again), found by its image
+        equal, served_in = 0, 0
+        for batch, _ in batches:
+            want = p.gather_detection2d(batch, num_detections=100,
+                                        normalize_boxes=True)
+            for slot in range(SERVE_BATCH):
+                i = request_of.get(digest(batch[slot]))
+                if i is not None and i < n_req and answers[i] is not None:
+                    served_in += 1
+                    boxes = want["bboxes"][slot] * SIZE
+                    got = answers[i]["detections"]
+                    equal += int(
+                        [d["label"] for d in got] == want["labels"][slot].tolist()
+                        and [d["score"] for d in got]
+                        == [round(float(s), 4) for s in want["scores"][slot]]
+                        and [d["box"] for d in got]
+                        == [[round(float(v), 2) for v in b] for b in boxes])
+        lat = np.array([x for x in latency if x is not None])
+        # where the tail sits: the slowest requests (sent at, ms after the
+        # stream's start) beside the batches the card ran
+        slowest = sorted((x, (sent[i] - t0) * 1e3) for i, x in enumerate(latency)
+                         if x is not None)[-5:]
+        run_ms = np.array([r[1] for r in runs])
+        checks = {"all_answered": all(a is not None for a in answers),
+                  "answers_equal_predictor": equal == n_req == served_in,
+                  "fewer_batches_than_requests": 0 < len(batches) < n_req,
+                  "one_peak_launch_a_batch":
+                      launches["peak_class_scores_cuda"] == len(batches)}
+        report[name] = {"requests": n_req, "clients": SERVE_CLIENTS,
+                        "batches_run": len(batches), "wall_s": wall,
+                        "requests_per_s": n_req / wall,
+                        "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                                       "p99": float(np.percentile(lat, 99)),
+                                       "max": float(lat.max())},
+                        "slowest_requests_ms_sent_at": [
+                            [round(x, 1), round(at, 1)] for x, at in slowest[::-1]],
+                        "batch_run_ms": {"p50": float(np.median(run_ms)),
+                                         "max": float(run_ms.max()),
+                                         "max_started_at": round(
+                                             (runs[int(run_ms.argmax())][0] - t0) * 1e3, 1)},
+                        "requests_a_batch": n_req / max(len(batches), 1),
+                        "gc_passes": [sum(g == gen for g, _, _ in collections)
+                                      for gen in range(3)],
+                        "gc_max_ms_started_at": [
+                            round(max((c[2] for c in collections), default=0.0), 1),
+                            round((max(collections, key=lambda c: c[2])[1] - t0) * 1e3, 1)
+                            if collections else None],
+                        "launches": launches, "checks": checks}
+        total += launches["peak_class_scores_cuda"]
+        if not all(checks.values()):
+            emit({"phase": "serve_path", "card": card, **report})
+            raise AssertionError(f"serve path ({name}) checks failed: {checks}")
+    emit({"phase": "serve_path", "card": card, "batch": SERVE_BATCH,
+          "max_wait_ms": 5, "image_size": SIZE, **report,
+          "phase_s": time.perf_counter() - t_phase})
+    return total
+
+
+def export_path(card, pred, qpred, reset_launches, read_launches):
+    """`export_path`: the flagship's serving program exported with
+    torch.export (cli/export.py) at b1 and b8, bf16 and int8, saved,
+    loaded back and run on the card: detections bitwise equal to the
+    predictor's, one peak launch a call through the loaded program.
+    Returns the peak launches."""
+    import shutil
+    import tempfile
+
+    from centernet_lightning_torch.cli.export import export_program
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    gen = torch.Generator().manual_seed(41)
+    rows, total = [], 0
+    for name, p in (("bfloat16", pred), ("int8", qpred)):
+        for b in EXPORT_BATCHES:
+            path = os.path.join(work, f"{name}_b{b}.pt2")
+            t0 = time.perf_counter()
+            exported = export_program(p, path, batch_size=b, height=SIZE, width=SIZE)
+            export_s = time.perf_counter() - t0
+            ops = {str(n.target) for n in exported.graph.nodes
+                   if n.op == "call_function"}
+            del exported
+            t0 = time.perf_counter()
+            program = torch.export.load(path).module()
+            load_s = time.perf_counter() - t0
+            x = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen,
+                              dtype=torch.uint8).cuda()
+            with torch.inference_mode():
+                program(x)                                  # warm-up
+                reset_launches()
+                got = program(x)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                want = p.detect(x)
+            same = {k: torch.equal(got[k], want[k]) for k in want}
+            rows.append({"dtype": name, "batch": b, "bytes": os.path.getsize(path),
+                         "export_s": export_s, "load_s": load_s,
+                         "peak_op_in_graph":
+                             "centernet_lightning.peak_class_scores.default" in ops,
+                         "int_mm_in_graph": "aten._int_mm.default" in ops,
+                         "launches": launches, "bitwise_equal": same})
+            total += launches["peak_class_scores_cuda"]
+            del program, got, want, x
+    shutil.rmtree(work, ignore_errors=True)
+    checks = {"peak_op_in_every_graph": all(r["peak_op_in_graph"] for r in rows),
+              "int_mm_in_int8_graphs": all(r["int_mm_in_graph"] == (r["dtype"] == "int8")
+                                           for r in rows),
+              "one_peak_launch_a_call": all(
+                  r["launches"]["peak_class_scores_cuda"] == 1 for r in rows),
+              "equal_predictor": all(all(r["bitwise_equal"].values()) for r in rows)}
+    emit({"phase": "export_path", "card": card, "image_size": SIZE,
+          "programs": rows, "checks": checks,
+          "phase_s": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"export path checks failed: {checks}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def convert_path(card):
+    """`convert_path`: a synthetic Lightning checkpoint of the flagship
+    (seeded state dict under `model.`, torch.save) through
+    cli.convert_checkpoint, then build_centernet on its directory: the
+    forward on the card (f32, TF32 off) equal to `load_torch_checkpoint`'s."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch.cli import convert_checkpoint
+    from centernet_lightning_torch.models.centernet import CenterNet
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    task = CenterNet(**FLAGSHIP_CFG)
+    task.init(torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    state = {}
+    for key, v in task.model.state_dict().items():
+        if v.is_floating_point():
+            v = v + 0.01 * torch.randn(v.shape, generator=gen)
+            if key.endswith("running_var"):
+                v = v.abs() + 0.5
+        state["model." + key] = v
+    ckpt = os.path.join(work, "reference.ckpt")
+    torch.save({"state_dict": state, "epoch": 1, "global_step": 10}, ckpt)
+    config = os.path.join(work, "flagship.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump({"model": FLAGSHIP_CFG}, f)
+    out_dir = os.path.join(work, "converted")
+    t0 = time.perf_counter()
+    rc = convert_checkpoint.main(["--config", config, "--torch-ckpt", ckpt,
+                                  "--output", out_dir])
+    convert_s = time.perf_counter() - t0
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        served = build_centernet(out_dir)
+        ref = CenterNet(**FLAGSHIP_CFG)
+        ref.load_torch_checkpoint(ckpt)
+        ref.model.to("cuda", memory_format=torch.channels_last).eval()
+        images = torch.randint(0, 256, (4, SIZE, SIZE, 3), generator=gen,
+                               dtype=torch.uint8).numpy()
+        with torch.inference_mode():
+            x = served.prepare_images(images)
+            a, b = served.model(x), ref.model(x)
+        same = {k: torch.equal(a[k], b[k]) for k in ("heatmap", "box_2d")}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    shutil.rmtree(work, ignore_errors=True)
+    checks = {"exit_0": rc == 0, "forward_equal": all(same.values())}
+    emit({"phase": "convert_path", "card": card, "convert_s": convert_s,
+          "tensors": len(state), "bitwise_equal": same, "checks": checks,
+          "phase_s": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"convert path checks failed: {checks}")
+    del served, ref, a, b
+    torch.cuda.empty_cache()
+
+
+def serving_phases(card, reset_launches, read_launches):
+    """The int8 and deployment phases: `int8_main_path` (and
+    `int8_times`), `int8_tracking`, `serve_path`, `export_path`,
+    `convert_path`. Returns the peak kernel's launches on their paths."""
+    pred, qpred, launches = int8_main_path(card, reset_launches, read_launches)
+    launches += serve_path(card, pred, qpred, reset_launches, read_launches)
+    launches += export_path(card, pred, qpred, reset_launches, read_launches)
+    del pred, qpred
+    torch.cuda.empty_cache()
+    launches += int8_tracking(card, reset_launches, read_launches)
+    convert_path(card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2568,6 +3237,10 @@ def main() -> int:
 
     # ---- 5f. the train CLI on packs, resumed, served from best/ ------------
     path_launches["peak_class_scores_cuda"] += cli_phases(
+        card, reset_launches, read_launches)
+
+    # ---- 5g. int8 serving, the HTTP service, export, checkpoint convert ----
+    path_launches["peak_class_scores_cuda"] += serving_phases(
         card, reset_launches, read_launches)
 
     # ---- 6. forward parity on the card ---------------------------------

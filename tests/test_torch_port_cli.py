@@ -14,8 +14,8 @@ package's root train.py and tools/, in-process on the CPU.
   tools/detect.py and tools/track.py on a JAX checkpoint carried into the
   port's checkpoint format by utils/convert.py: the metrics within 1e-4,
   the same COCO results (labels, boxes within 1e-4), the same MOT track
-  ids; `--quantize` exits non-zero naming ROADMAP Queue 1 item 6; the
-  entry points default to the card.
+  ids; `--quantize 2` calibrates each tool's predictor and serves int8;
+  the entry points default to the card.
 - `python -m centernet_lightning_torch.cli.train --help` in a subprocess.
 """
 import glob
@@ -27,6 +27,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)   # the JAX package's train CLI lives at the root
@@ -380,16 +381,66 @@ def test_track_cli_equal_jax(mot_sequence, tmp_path, monkeypatch, capsys,
     np.testing.assert_allclose(t_boxes, j_boxes, rtol=1e-4, atol=1e-3)
 
 
+def port_checkpoint(tmp_path, cfg, seed):
+    """A port checkpoint directory of seeded weights (the port's init)."""
+    task_cls = FairMOT if cfg.get("reid_config") else CenterNet
+    task = task_cls(**cfg)
+    task.init(torch.Generator().manual_seed(seed))
+    out = str(tmp_path / "q_ckpt")
+    save_checkpoint(out, {"model": task.model.state_dict(), "step": 0},
+                    hparams=task.hparams, step=0)
+    return out
+
+
 @pytest.mark.parametrize("module", [t_validate, t_detect, t_track],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
-def test_tools_quantize_refused_and_card_default(module, tmp_path, monkeypatch):
-    args = {"validate": ["--img-dir", "x", "--ann-json", "y"],
-            "detect": ["--images", "x", "--out", str(tmp_path)],
-            "track": ["--frames", "x", "--out", str(tmp_path)]}[
-        module.__name__.rsplit(".", 1)[-1]] + ["--checkpoint", "c"]
-    with pytest.raises(SystemExit) as err:
-        module.main(args + ["--quantize", "2", "--device", "cpu"])
-    assert err.value.code not in (0, None) and "item 6" in str(err.value.code)
+def test_tools_quantize_runs_int8_and_card_default(module, tmp_path, monkeypatch,
+                                                   capsys, request, one_thread):
+    """`--quantize 2 --device cpu` calibrates on two images, frames or
+    batches, serves in int8 (a QuantizedCenterNetPredictor) and writes the
+    tool's outputs; without `--device` the tool builds on the card."""
+    name = module.__name__.rsplit(".", 1)[-1]
+    if name == "track":
+        gt_root, frames = request.getfixturevalue("mot_sequence")
+        cfg = dict(SMALL, num_classes=1, reid_config={"emb_dim": 8,
+                                                      "max_track_ids": 8})
+        args = ["--frames", frames, "--out", str(tmp_path / "out"),
+                "--batch-size", "2", "--tracker", "detection_threshold=0.0"]
+        unit, wrote = "frames", "tracking_results.txt"
+    else:
+        img_dir, ann = request.getfixturevalue("coco_dir")
+        cfg = SMALL
+        if name == "validate":
+            args = ["--img-dir", img_dir, "--ann-json", ann, "--batch-size", "2",
+                    "--image-size", str(IMG), "--save-results",
+                    str(tmp_path / "out" / "results.json")]
+            unit, wrote = "batches", "results.json"
+        else:
+            args = ["--images", img_dir, "--out", str(tmp_path / "out"),
+                    "--batch-size", "2", "--score-threshold", "0.0"]
+            unit, wrote = "images", "detections.json"
+    os.makedirs(tmp_path / "out", exist_ok=True)
+    args += ["--checkpoint", port_checkpoint(tmp_path, cfg, 5)]
+
+    served = []
+    quantize = t_api.CenterNetPredictor.quantize
+
+    def spy(self, calibration_images, exclude=None):
+        served.append(quantize(self, calibration_images, exclude))
+        return served[-1]
+
+    monkeypatch.setattr(t_api.CenterNetPredictor, "quantize", spy)
+    capsys.readouterr()
+    assert module.main(args + ["--quantize", "2", "--device", "cpu"]) == 0
+    captured = capsys.readouterr()
+    assert f"int8 serving: calibrated on 2 {unit}" in captured.err
+    assert len(served) == 1
+    assert isinstance(served[0], t_api.QuantizedCenterNetPredictor)
+    assert served[0].act_scales
+    assert os.path.getsize(tmp_path / "out" / wrote) > 0
+    summary = last_json(captured.out)
+    assert {"validate": len(summary) == 12, "detect": summary.get("images") == 5,
+            "track": summary.get("frames") == 6}[name], summary
 
     class Built(Exception):
         pass

@@ -3,6 +3,8 @@ the machine with the card has no jax, and the port must not need it."""
 import ast
 import os
 
+import pytest
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "centernet_lightning_tpu"}
 
@@ -33,6 +35,19 @@ def test_port_imports_no_jax():
     assert not bad, bad
 
 
+SERVING_MODULES = ["quantize.py", "cli/serve.py", "cli/export.py",
+                   "cli/convert_checkpoint.py"]
+
+
+@pytest.mark.parametrize("module", SERVING_MODULES)
+def test_serving_modules_import_no_jax(module):
+    """The int8 and deployment modules are among the files checked above
+    and import nothing of JAX or the JAX package."""
+    path = os.path.join(ROOT, "centernet_lightning_torch", *module.split("/"))
+    assert os.path.normpath(path) in {os.path.normpath(f) for f in _python_files()}
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
 def test_port_loads_without_opencv():
     """The card's machine has no OpenCV: the package, its data, eval and
     train subpackages and the trainer must import with cv2 hidden."""
@@ -44,6 +59,9 @@ def test_port_loads_without_opencv():
             "centernet_lightning_torch.eval, centernet_lightning_torch.train\n"
             "from centernet_lightning_torch.train.trainer import Trainer\n"
             "from centernet_lightning_torch.data import transforms, mosaic\n"
+            "from centernet_lightning_torch import quantize\n"
+            "from centernet_lightning_torch.cli import serve, export, "
+            "convert_checkpoint\n"
             "assert sys.modules['cv2'] is None\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
