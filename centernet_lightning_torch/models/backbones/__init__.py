@@ -1,12 +1,12 @@
-"""Backbone registry (port of models/backbones/__init__.py).
-
-VoVNet, DLA and EfficientNet raise NotImplementedError until the slice
-that ports them (ROADMAP Queue 1 item 2b).
-"""
+"""Backbone registry (port of models/backbones/__init__.py)."""
 from .darknet import CSPDarknet53, cspdarknet53, darknet53
+from .dla import DLA, dla34, dla34_small
+from .efficientnet import (EfficientNet, efficientnet_b0, efficientnet_b1,
+                           efficientnet_b2, efficientnet_b3)
 from .mobilenet import (MobileNetV2, MobileNetV3Large, MobileNetV3Small,
                         mobilenet_v2, mobilenet_v3_large, mobilenet_v3_small)
 from .resnet import ResNet, resnet18, resnet34, resnet50, resnet101
+from .vovnet import VoVNet, vovnet19, vovnet39, vovnet57
 
 BACKBONES = {
     "resnet18": resnet18,
@@ -21,27 +21,29 @@ BACKBONES = {
     "mobilenetv3_small": mobilenet_v3_small,
     "cspdarknet53": cspdarknet53,
     "darknet53": darknet53,
+    "vovnet19": vovnet19,
+    "vovnet39": vovnet39,
+    "vovnet57": vovnet57,
+    "dla34": dla34,
+    "dla34_small": dla34_small,
+    "efficientnet_b0": efficientnet_b0,
+    "efficientnet_b1": efficientnet_b1,
+    "efficientnet_b2": efficientnet_b2,
+    "efficientnet_b3": efficientnet_b3,
 }
-
-_LATER = (
-    "vovnet19", "vovnet39", "vovnet57", "dla34", "dla34_small",
-    "efficientnet_b0", "efficientnet_b1", "efficientnet_b2", "efficientnet_b3",
-)
 
 
 def build_backbone(name: str, **kwargs):
     """Instantiate a backbone by registry name."""
-    if name in _LATER:
-        raise NotImplementedError(
-            f"backbone {name!r} is ported with the remaining backbones "
-            f"(ROADMAP Queue 1 item 2b)")
     if name not in BACKBONES:
         raise KeyError(f"unknown backbone '{name}'; available: {sorted(BACKBONES)}")
     return BACKBONES[name](**kwargs)
 
 
-__all__ = ["BACKBONES", "CSPDarknet53", "MobileNetV2", "MobileNetV3Large",
-           "MobileNetV3Small", "ResNet", "build_backbone", "cspdarknet53",
-           "darknet53", "mobilenet_v2", "mobilenet_v3_large",
-           "mobilenet_v3_small", "resnet18", "resnet34", "resnet50",
-           "resnet101"]
+__all__ = ["BACKBONES", "CSPDarknet53", "DLA", "EfficientNet", "MobileNetV2",
+           "MobileNetV3Large", "MobileNetV3Small", "ResNet", "VoVNet",
+           "build_backbone", "cspdarknet53", "darknet53", "dla34",
+           "dla34_small", "efficientnet_b0", "efficientnet_b1",
+           "efficientnet_b2", "efficientnet_b3", "mobilenet_v2",
+           "mobilenet_v3_large", "mobilenet_v3_small", "resnet18", "resnet34",
+           "resnet50", "resnet101", "vovnet19", "vovnet39", "vovnet57"]

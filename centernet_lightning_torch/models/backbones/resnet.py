@@ -7,6 +7,12 @@ convert_resnet_state_dict` of the JAX package maps a state dict exactly.
 `forward` takes NCHW and returns the pyramid [C2(s4), C3(s8), C4(s16),
 C5(s32)]; `out_channels` lists their widths and `stride` is 32.
 
+`remat` is the JAX package's option of that name (see `ResNet`).
+`stem_space_to_depth` is accepted and runs the plain stem: the JAX
+package's space-to-depth stem is the same function, regrouped into a 4x4
+stride-1 convolution for the TPU's layout, and on the card the regrouped
+form is the slower one.
+
 `frozen_stages=k` freezes the stem and layer1..layerk as the JAX package
 does: their BatchNorms run on running statistics in train mode (`train()`
 keeps them in eval), and the map leaving each frozen stage is detached,
@@ -15,13 +21,16 @@ so no gradient reaches them. The optimizer gives them zero updates
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence, Type, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
-from ..layers import batch_norm
+from ..layers import batch_norm, recomputing
 
 __all__ = ["BasicBlock", "Bottleneck", "ResNet", "StemConv",
            "resnet18", "resnet34", "resnet50", "resnet101"]
@@ -89,8 +98,29 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
+def _remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` under `torch.utils.checkpoint`. The block's parameters
+    as they are now go in as inputs and the recompute runs on them: a
+    bf16 train step calls the model through `functional_call` with bf16
+    copies, which are gone from the module by the time the backward
+    recomputes."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(x, *tensors):
+        return functional_call(block, dict(zip(names, tensors)), (x,))
+
+    return checkpoint(run, x, *tensors, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recomputing()))
+
+
 class ResNet(nn.Module):
-    """7x7/s2 stem + BN + ReLU + 3x3/s2 max pool, then four stages."""
+    """7x7/s2 stem + BN + ReLU + 3x3/s2 max pool, then four stages.
+
+    `remat=True` runs each block under `torch.utils.checkpoint` in training
+    (the JAX package's `nn.remat` a block): its activations are recomputed
+    in the backward instead of kept, and the recompute leaves the running
+    statistics as the forward set them."""
 
     stride = 32
 
@@ -100,12 +130,10 @@ class ResNet(nn.Module):
                  stem_space_to_depth: bool = False, remat: bool = False,
                  frozen_stages: int = 0):
         super().__init__()
-        if stem_space_to_depth or remat:
-            raise NotImplementedError(
-                "stem_space_to_depth and remat are not ported yet "
-                "(ROADMAP Queue 1 item 2b)")
+        del stem_space_to_depth          # the plain stem (module docstring)
         self.stage_sizes = tuple(stage_sizes)
         self.frozen_stages = int(frozen_stages)
+        self.remat = remat
         self.width = width
         self.conv1 = StemConv(in_channels, width)
         self.bn1 = batch_norm(width)
@@ -141,8 +169,13 @@ class ResNet(nn.Module):
         if self.frozen_stages >= 1:
             x = x.detach()
         features = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for stage in range(len(self.stage_sizes)):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                if remat:
+                    x = _remat(block, x)
+                else:
+                    x = block(x)
             if stage + 1 <= self.frozen_stages:
                 x = x.detach()
             features.append(x)

@@ -14,7 +14,9 @@ one, n/(n-1) larger).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -27,10 +29,30 @@ from ..ops import dcn_fused, dcn_sample
 __all__ = ["BatchNorm1d", "BatchNorm2d", "ConvNormAct", "SeparableConvNormAct",
            "DeformableConvBlock", "DeformWeight", "Upsample", "Downsample",
            "Fuse", "SPP", "SameConv2d", "CONV_BLOCKS", "get_conv_block",
-           "batch_norm", "same_pads", "bilinear_kernel"]
+           "batch_norm", "same_pads", "bilinear_kernel", "recomputing"]
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
+
+
+class _Recompute(threading.local):
+    depth = 0
+
+
+_RECOMPUTE = _Recompute()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks, on this thread, the recompute of a checkpointed block
+    (ResNet `remat`): its BatchNorms normalise as in the forward but leave
+    the running statistics as the forward moved them, once, as flax's
+    `nn.remat` does."""
+    _RECOMPUTE.depth += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE.depth -= 1
 
 
 class _FlaxStatistics:
@@ -52,6 +74,8 @@ class _FlaxStatistics:
                                 0.0, self.eps)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if _RECOMPUTE.depth:
+            return y
         with torch.no_grad():
             var = invstd.float().pow(-2) - self.eps
             m = self.momentum
@@ -347,7 +371,9 @@ class DeformableConvBlock(nn.Module):
 
     Engines:
       - max_displacement=None: the exact gather engine, plain PyTorch
-        (ops/dcn.py:exact_taps), any odd k;
+        (ops/dcn.py:exact_taps), any k; taps start at -(k - 1) // 2, so an
+        even k reaches one further on the high side, as its SAME offset
+        and mask convolutions pad;
       - max_displacement=d, sampler="auto": offsets clamped to [-d, d], the
         nine taps from the sampling kernel (ops/dcn_sample.py), then one
         matrix product with f32 accumulation;
@@ -364,10 +390,6 @@ class DeformableConvBlock(nn.Module):
                  sampler: str = "auto"):
         super().__init__()
         k = kernel_size
-        if k % 2 == 0:
-            raise NotImplementedError(
-                "DeformableConvBlock: even kernels need flax's asymmetric "
-                "SAME padding; no block on the serving path uses one")
         if max_displacement is not None and k != 3:
             raise ValueError(
                 f"dcn_fast shift engines support kernel_size=3 only "
@@ -379,8 +401,9 @@ class DeformableConvBlock(nn.Module):
         self.kernel_size = k
         self.max_displacement = max_displacement
         self.sampler = sampler
-        self.conv_offset = nn.Conv2d(in_channels, 2 * k * k, k, padding=k // 2)
-        self.conv_mask = (nn.Conv2d(in_channels, k * k, k, padding=k // 2)
+        # SAME: an even k pads (k - 1) // 2 low and k // 2 high
+        self.conv_offset = SameConv2d(in_channels, 2 * k * k, k)
+        self.conv_mask = (SameConv2d(in_channels, k * k, k)
                           if version == 2 else None)
         self.deform = DeformWeight(in_channels, out_channels, k,
                                    bias=not use_norm)

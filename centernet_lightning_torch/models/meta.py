@@ -15,7 +15,9 @@ import torch
 from torch import nn
 
 from .backbones import build_backbone
+from .backbones.efficientnet import SqueezeExciteSiLU
 from .backbones.mobilenet import SqueezeExcite
+from .backbones.vovnet import ESE
 from .backbones.resnet import BasicBlock, Bottleneck
 from .heads import GenericHead, ReIDClassifier
 from .layers import SPP, DeformableConvBlock, Fuse, Upsample, bilinear_kernel
@@ -175,8 +177,10 @@ def _trunc_normal_fan_in(weight: torch.Tensor, scale: float,
 @torch.no_grad()
 def init_weights(model: GenericModel, generator: torch.Generator) -> None:
     """The JAX package's initialisers, drawn from `generator`: he_normal
-    convolutions, lecun_normal for the residual projections, the head
-    output convolutions and the squeeze-excite convolutions (zero biases),
+    convolutions (ConvBN, ConvBNSiLU and DLA's among them), lecun_normal
+    for the residual projections, the head output convolutions and the
+    squeeze-excite convolutions (MobileNet's and EfficientNet's SE,
+    VoVNet's eSE: flax's default `nn.Conv`; zero biases),
     unit/zero BatchNorm with the last BN of each residual block zeroed,
     each head's constant output bias; linear layers lecun_normal with zero
     biases (flax Dense); a DCN block's offset and mask
@@ -209,9 +213,11 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
                     conv.weight.zero_()
                     conv.bias.zero_()
             _trunc_normal_fan_in(mod.deform.weight, 2.0, generator)
-        elif isinstance(mod, SqueezeExcite):
+        elif isinstance(mod, (SqueezeExcite, SqueezeExciteSiLU)):
             for conv in (mod.reduce, mod.expand):
                 _trunc_normal_fan_in(conv.weight, 1.0, generator)
+        elif isinstance(mod, ESE):
+            _trunc_normal_fan_in(mod.conv.weight, 1.0, generator)
         elif isinstance(mod, Upsample) and mod.method == "conv_transpose":
             w = mod.conv.weight                       # (in, out, k, k)
             if mod.init_bilinear:

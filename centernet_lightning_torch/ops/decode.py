@@ -11,11 +11,11 @@ Maps are NHWC and indices flatten H*W as idx = y*W + x, as in the JAX
 package. `decode_detections_auto` sends CUDA maps to the fused peak kernel
 (`peak_decode.decode_detections_fused`) and everything else here.
 
-Top-k ties: `torch.topk` does not promise an order among equal scores
-(`lax.top_k` puts the lower index first). The port's convention is that
-the returned scores are the same sorted values; among entries with equal
-scores the indices, labels and boxes may come in any order, and where
-equal scores straddle the k-th place any of them may be kept.
+Top-k order is `lax.top_k`'s: scores descend in the total order of
+their bits (+NaN above +inf, +0.0 above -0.0, -NaN below -inf), and equal
+scores come lower flat index first, so the entry kept at the k-th place
+is the same too. `torch.topk` promises no order among ties, so `_topk`
+ranks one int64 key a pixel instead, which is unique (see `_rank_key`).
 """
 from __future__ import annotations
 
@@ -91,9 +91,23 @@ def get_topk_from_heatmap(
     return _topk(scores, labels, num_detections, from_logits)
 
 
+def _rank_key(scores: torch.Tensor) -> torch.Tensor:
+    """(N, M) int64 keys whose descending order is `lax.top_k`'s order of
+    the scores: the f32 bits made order-preserving as a signed int32 (a
+    negative float's magnitude bits flipped) in the high word, and
+    2^32 - 1 - index, which puts the lower index first, in the low word.
+    Keys are unique and the largest, (2^31 - 1) 2^32 + 2^32 - 1, is
+    2^63 - 1, so none overflows."""
+    bits = scores.float().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    index = torch.arange(scores.shape[-1], device=scores.device)
+    return ordered * (1 << 32) + ((1 << 32) - 1 - index)
+
+
 def _topk(scores, labels, num_detections: int, from_logits: bool):
     k = min(num_detections, scores.shape[-1])
-    topk_scores, topk_indices = torch.topk(scores, k, dim=-1)
+    _, topk_indices = torch.topk(_rank_key(scores), k, dim=-1)
+    topk_scores = torch.gather(scores, 1, topk_indices)
     topk_labels = torch.gather(labels, 1, topk_indices)
     topk_scores = topk_scores.float()
     if from_logits:

@@ -21,6 +21,14 @@
     `conv1`/`bn1`, `layer<s>_block<b>` -> `layer<s>.<b>` (with
     `Conv_<i>`/`BatchNorm_<i>` -> `conv<i+1>`/`bn<i+1>` and
     `downsample_conv`/`downsample_bn` -> `downsample.0`/`downsample.1`);
+    VoVNet `OSABlock_<i>` -> `blocks.<i>` (with `ConvBN_<j>` -> `convs.<j>`
+    and `ESE_0` -> `ese`, its `Conv_0` -> `conv`); EfficientNet
+    `ConvBNSiLU_<i>` -> `convs.<i>` (`conv`/`bn`), `MBConv_<i>` ->
+    `blocks.<i>`, `SqueezeExciteSiLU_0` -> `se` (`reduce`/`expand`); DLA's
+    named scopes keep their names (`base_conv`, `level0_bn1`, `level3`,
+    `tree1`, `tree2`, `root` (`Conv_0`/`BatchNorm_0` -> `conv`/`bn`),
+    `project_conv`, `project_bn`), a basic block's (`tree1`/`tree2` of a
+    levels-1 Tree) `Conv_<i>`/`BatchNorm_<i>` -> `conv<i+1>`/`bn<i+1>`;
   - kernels: convolutions HWIO -> OIHW (a depthwise (k, k, 1, C) becomes
     (C, 1, k, k)); a transpose conv's (k, k, in, out), which flax applies
     unflipped, -> flip(kernel, (0, 1)) as (in, out, k, k), since torch
@@ -34,8 +42,8 @@
     `conv_offset`/`conv_mask`/`bn`, and the tap-major `kernel` (k^2 C, O)
     and `bias` -> `deform.weight` (O, C, k, k) and `deform.bias`.
 
-A scope the port does not have (the backbones still to be ported)
-raises KeyError rather than being dropped.
+A scope the port does not have raises KeyError rather than being
+dropped.
 """
 from __future__ import annotations
 
@@ -52,19 +60,29 @@ _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
          "fuse_weights": "fuse_weights"}
 # scopes numbered within their parent -> the port's list
 _LISTS = {"ConvNormAct": "blocks", "CSPStage": "blocks", "ResBlock": "blocks",
-          "InvertedResidual": "blocks", "DarkConv": "convs", "ConvBN": "convs",
+          "InvertedResidual": "blocks", "OSABlock": "blocks", "MBConv": "blocks",
+          "DarkConv": "convs", "ConvBN": "convs", "ConvBNSiLU": "convs",
           "Upsample": "upsamples", "Fuse": "fuses"}
 # children of a scope class, by flax name
 _CHILDREN = {
     "DeformableConvBlock": {"Conv_0": "conv_offset", "Conv_1": "conv_mask",
                             "BatchNorm_0": "bn"},
     "SqueezeExcite": {"Conv_0": "reduce", "Conv_1": "expand"},
+    "SqueezeExciteSiLU": {"Conv_0": "reduce", "Conv_1": "expand"},
+    "ESE": {"Conv_0": "conv"},
+    "root": {"Conv_0": "conv", "BatchNorm_0": "bn"},
     "Upsample": {"ConvTranspose_0": "conv", "BatchNorm_0": "bn"},
     "classifier": {"Dense_0": "fc1", "BatchNorm_0": "bn", "Dense_1": "fc2"},
     **{cls: {"Conv_0": "conv", "BatchNorm_0": "bn"}
-       for cls in ("ConvNormAct", "DarkConv", "ConvBN")},
+       for cls in ("ConvNormAct", "DarkConv", "ConvBN", "ConvBNSiLU")},
 }
 _PLAIN_RE = re.compile(r"ConvNormAct_\d+")
+# DLA's scopes, named in flax, keep their names
+_DLA_RE = re.compile(r"(base|level\d+)_(conv|bn)\d*|level\d+|tree[12]|root"
+                     r"|project_(conv|bn)")
+# parents whose Conv_<i> / BatchNorm_<i> are conv<i+1> / bn<i+1>: a ResNet
+# block, and a DLA basic block (a levels-1 Tree's `tree1` / `tree2`)
+_BLOCK_RE = re.compile(r"layer\d+_block\d+|tree[12]")
 
 
 def _scope(name: str, parent: str, siblings) -> str:
@@ -78,8 +96,10 @@ def _scope(name: str, parent: str, siblings) -> str:
         return "conv1"
     if name == "stem_bn":
         return "bn1"
-    if name == "SqueezeExcite_0":
+    if name in ("SqueezeExcite_0", "SqueezeExciteSiLU_0"):
         return "se"
+    if name == "ESE_0":
+        return "ese"
     m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
     if m:
         return f"layer{m.group(1)}.{m.group(2)}"
@@ -93,13 +113,15 @@ def _scope(name: str, parent: str, siblings) -> str:
         plain = sum(1 for s in siblings if _PLAIN_RE.fullmatch(s))
         return f"blocks.{plain + int(m.group(2))}"
     m = re.fullmatch(r"(Conv|BatchNorm)_(\d+)", name)
-    if m and re.fullmatch(r"layer\d+_block\d+", parent):
+    if m and _BLOCK_RE.fullmatch(parent):
         i = int(m.group(2)) + 1
         return f"conv{i}" if m.group(1) == "Conv" else f"bn{i}"
     if name == "downsample_conv":
         return "downsample.0"
     if name == "downsample_bn":
         return "downsample.1"
+    if _DLA_RE.fullmatch(name):
+        return name
     raise KeyError(f"no port of flax scope {parent}/{name}")
 
 

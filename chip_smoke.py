@@ -96,6 +96,29 @@ with its seconds (`phase_s`); any failure exits non-zero:
      centernet.yaml in fp16, whose heatmap the decode
      widens to f32 for the kernel: one peak launch, detections equal to
      the plain decode;
+     then the remaining backbone families (`backbone_phases`): VoVNet-39
+     FPN-256 (heads 256 x 3), DLA-34 IDA-256 (heads 256 x 2) and
+     EfficientNet-B0 with a separable FPN-96 (heads 96 x 2), bench_suite's
+     configs at 80 classes, bf16, BatchNorm calibrated, the (64, 512, 512,
+     3) batch through `gather_detection2d` with the launch counts reset
+     just before and read just after: one peak launch each, detections
+     equal to the plain decode's, FLOPs an image (FlopCounterMode); their
+     images/s (median of E2E_REPS rounds, in turn) and profiles; the f32
+     forward on the card (TF32 off) at b2 against the same weights' f64
+     forward on the CPU, held at FORWARD_RTOL of the largest magnitude or,
+     where the CPU's own f32 forward is already that far from f64, at
+     twice the CPU's distance (`forward_parity_exact`); then the flagship
+     with `stem_space_to_depth` against the plain stem on the same weights
+     (the port runs the plain stem for it: one peak launch each, logits and
+     detections bitwise equal; the JAX package's regrouped 4x4 stem,
+     `stem_space_to_depth`, in f32 within STEM_F32_TOL of `F.conv2d`, and
+     both stems' ms); the flagship decode with the top-k in lax.top_k's
+     order against the order-free `torch.topk` it replaced, timed in
+     turns, and the order checked against a stable sort; one bf16 train
+     step of a `remat` ResNet-34 FPN-256 at b32 against the plain step
+     twice: gradients (relative L2 no larger than the second plain step's
+     from the first), BatchNorm statistics updated once (REMAT_STATS_TOL),
+     peak memory lower, step ms;
      then the tracking path: `build_centernet` on configs/mot_tracking.yaml
      (ResNet-34, FPN-256, heads 256 x 3, 1 class, ReID head 256 x 1 -> 64,
      2900 identities) at 608 x 1088, bf16, BatchNorm calibrated, the
@@ -218,6 +241,8 @@ import time
 
 import numpy as np
 import torch
+
+import bench_torch
 
 H100_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 H100_F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -2466,6 +2491,349 @@ def serving_phases(card, reset_launches, read_launches):
     return launches
 
 
+# ---- the remaining backbone families, the ResNet options, the top-k order --
+# bench_suite.py's full-width serving configs of VoVNet-39 FPN-256, DLA-34
+# IDA-256 and EfficientNet-B0 with a separable FPN-96 (bench_torch.py's
+# copy: bench_suite imports jax), served at BATCH x SIZE^2 in bf16 with 80
+# classes
+BACKBONE_CFGS = {name: bench_torch.CONFIGS[name][1]
+                 for name in ("vovnet39", "dla34_ida", "efficientnet_b0")}
+# the JAX package's space-to-depth stem regrouped on the card, timed beside
+# the plain stem the port runs for it: within STEM_F32_TOL of F.conv2d in
+# f32 with TF32 off, as a share of the largest |output|
+STEM_F32_TOL = 1e-5
+# the remat train step: ResNet-34 FPN-256 at b32 bf16, the flagship recipe;
+# its gradients against the plain step's as a relative L2 norm, no farther
+# than a second plain step's (the run's own noise floor: 0 where the step
+# is deterministic, so a recompute on other weights fails); its BatchNorm
+# statistics against the plain step's, as a share of the step's change of
+# them (a second update in the recompute moves them by about 0.9 of it)
+REMAT_BATCH = 32
+REMAT_STATS_TOL = 1e-2
+
+
+def forward_parity_exact(cpu, gpu, images):
+    """The card's f32 forward against the exact answer: the same weights in
+    f64 on the CPU. `card_vs_exact` is the card's max abs distance from the
+    f64 logits, `own_f32_error` the CPU f32 forward's, `card_vs_cpu` the
+    two f32 forwards'. The card is held at FORWARD_RTOL of the largest
+    magnitude or, where the CPU's own f32 forward is already farther
+    (VoVNet-39's box head, 3.1-3.3e-4 from f64 against a 2.99e-4
+    tolerance), at twice the CPU's distance."""
+    with torch.inference_mode():
+        x = cpu.prepare_images(images)
+        ref = cpu.model(x)
+        got = gpu.model(gpu.prepare_images(images))
+        exact = cpu.model.double()(x.double())
+        cpu.model.float()
+    parity = {}
+    for key in ("heatmap", "box_2d"):
+        scale = max(1.0, exact[key].abs().max().item())
+        own = (ref[key].double() - exact[key]).abs().max().item()
+        parity[key] = {
+            "card_vs_exact": (got[key].cpu().double() - exact[key]).abs().max().item(),
+            "own_f32_error": own,
+            "card_vs_cpu": (got[key].cpu() - ref[key]).abs().max().item(),
+            "max_abs_ref": scale, "tolerance": max(FORWARD_RTOL * scale, 2 * own)}
+    return parity
+
+
+def stem_space_to_depth(x, weight):
+    """The JAX package's space-to-depth stem on the card: the (O, C, 7, 7)
+    stem weight zero-padded 7 -> 8 at the leading edge and regrouped into a
+    4x4 stride-1 convolution over a 2x2 space-to-depth of x (N, C, H, W),
+    pads (2, 1); the same function as the 7x7 / s2 / pad-3 convolution.
+    Timed beside it; the port runs the plain convolution."""
+    n, c, h, w = x.shape
+    x2 = x.permute(0, 2, 3, 1).reshape(n, h // 2, 2, w // 2, 2, c)
+    x2 = x2.permute(0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
+    x2 = torch.nn.functional.pad(x2.permute(0, 3, 1, 2), (2, 1, 2, 1))
+    # k[p', q'] = weight[p' - 1, q' - 1]: (O, C, P, a, Q, b) -> (O, a, b, C, P, Q)
+    k = torch.nn.functional.pad(weight, (1, 0, 1, 0)).reshape(-1, c, 4, 2, 4, 2)
+    k = k.permute(0, 3, 5, 1, 2, 4).reshape(-1, 4 * c, 4, 4)
+    return torch.nn.functional.conv2d(x2, k)
+
+
+def backbone_config(name, dtype="bfloat16"):
+    model = dict(BACKBONE_CFGS[name], num_classes=80, num_detections=100,
+                 image_size=[SIZE, SIZE])
+    if dtype:
+        model["compute_dtype"] = dtype
+    return {"model": model}
+
+
+def flops_per_image(pred, images):
+    """Forward FLOPs of one image, from torch's FlopCounterMode."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        pred.model(pred.prepare_images(images[:1]))
+    return counter.get_total_flops()
+
+
+def topk_before_repair(scores, labels, num_detections, from_logits):
+    """ops/decode.py:_topk as it was before ties took lax.top_k's order:
+    one torch.topk on the scores (no order among ties). Timed beside the
+    repaired one on the same maps."""
+    k = min(num_detections, scores.shape[-1])
+    top, idx = torch.topk(scores, k, dim=-1)
+    top = top.float()
+    if from_logits:
+        top = torch.sigmoid(top)
+    return top, idx.to(torch.int32), torch.gather(labels, 1, idx)
+
+
+def lax_order_holds(scores, idx):
+    """Whether `idx` (N, k) lists the top k of `scores` (N, M) as lax.top_k
+    does for finite scores: descending, equal scores lower index first, the
+    k-th place taken by the lowest such index (a stable descending sort)."""
+    ref = torch.sort(scores.float().cpu(), dim=-1, descending=True,
+                     stable=True).indices[:, :idx.shape[1]]
+    return torch.equal(ref, idx.long().cpu())
+
+
+def remat_step(task, batch):
+    """One bf16 train step of `task.model` with gradients kept (KeepGrads):
+    (gradients, the state dict after it, peak allocated GB, ms)."""
+    from centernet_lightning_torch.train import TrainState, make_train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = TrainState(model=task.model, tx=KeepGrads())
+    t0 = time.perf_counter()
+    state, _ = make_train_step(task, compute_dtype="bfloat16")(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return ({k: g.float() for k, g in state.tx.grads.items() if g is not None},
+            {k: v.clone() for k, v in task.model.state_dict().items()}, peak, ms)
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| over every tensor of two dicts."""
+    diff = sum(((a[k] - b[k]) ** 2).sum().item() for k in b)
+    norm = sum((b[k] ** 2).sum().item() for k in b)
+    return (diff / max(norm, 1e-30)) ** 0.5
+
+
+def backbone_phases(card, reset_launches, read_launches, images):
+    """VoVNet-39 FPN-256, DLA-34 IDA-256 and EfficientNet-B0 sep-FPN-96
+    served at b64 bf16 (`backbones_main_path`, `backbones_times`,
+    `backbones_profile`, `backbones_forward_parity`), the flagship's stem
+    in space-to-depth form (`stem_space_to_depth`), its decode with the
+    top-k in lax.top_k's order against the order-free one it replaced
+    (`topk_repair`), and a remat train step (`remat_train_step`). Returns
+    the peak kernel's launches on these paths."""
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch.models.centernet import CenterNet
+    from centernet_lightning_torch.ops import decode as decode_ops
+    from centernet_lightning_torch.ops import peak_decode
+
+    peak_launches = 0
+    preds = {}
+    for name in BACKBONE_CFGS:
+        t_phase = time.perf_counter()
+        pred = build_centernet(backbone_config(name), seed=0)
+        calibrate_bn(pred, images[:8])
+        reset_launches()
+        t0 = time.perf_counter()
+        dets = pred.gather_detection2d(images)
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak_launches += launches["peak_class_scores_cuda"]
+        shapes_ok = (dets["bboxes"].shape == (BATCH, 100, 4)
+                     and dets["scores"].shape == (BATCH, 100))
+        finite = all(bool(np.isfinite(dets[k]).all()) for k in ("bboxes", "scores"))
+        labels_ok = bool(((dets["labels"] >= 0) & (dets["labels"] < 80)).all())
+        plain = decode_vs_plain(pred, images)
+        model = pred.model
+        emit({"phase": "backbones_main_path", "config": name,
+              "model": backbone_config(name)["model"],
+              "backbone": type(model.backbone).__name__,
+              "neck": type(model.neck).__name__, "batch": BATCH,
+              "image_size": SIZE, "dtype": "bfloat16",
+              "params_M": sum(p.numel() for p in model.parameters()) / 1e6,
+              "gflop_per_image": flops_per_image(pred, images) / 1e9,
+              "first_call_s": first_s, "launches": launches,
+              "shapes_ok": shapes_ok, "dets_finite": finite,
+              "labels_ok": labels_ok, **plain, "decode_equal_plain": True,
+              "phase_s": time.perf_counter() - t_phase})
+        if not (shapes_ok and finite and plain["finite"] and labels_ok
+                and plain["peak_maps_equal_plain"]):
+            raise AssertionError(f"{name} main path output check failed")
+        if launches["peak_class_scores_cuda"] != 1:
+            raise AssertionError(f"{name}: expected one peak launch: {launches}")
+        preds[name] = pred
+
+    t_phase = time.perf_counter()
+    dev_images = torch.from_numpy(images).cuda()
+    times = repeated_ms({name: functools.partial(p.detect, dev_images)
+                         for name, p in preds.items()})
+    for t in times.values():
+        t["images_per_s"] = BATCH / t["median_ms"] * 1e3
+    emit({"phase": "backbones_times", "batch": BATCH, "dtype": "bfloat16",
+          "image_size": SIZE, "card": card, "configs": times,
+          "max_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_s": time.perf_counter() - t_phase})
+    for name, pred in preds.items():
+        t_phase = time.perf_counter()
+        emit({"phase": "backbones_profile", "config": name, "card": card,
+              **device_breakdown(functools.partial(pred.detect, dev_images),
+                                 iters=3, wall_ms=times[name]["median_ms"]),
+              "phase_s": time.perf_counter() - t_phase})
+    del preds, pred, model, dev_images
+    torch.cuda.empty_cache()
+
+    # f32 forward, card (TF32 off) against the CPU, statistics calibrated
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name in BACKBONE_CFGS:
+            t_phase = time.perf_counter()
+            f32 = backbone_config(name, dtype=None)
+            cpu = build_centernet(f32, seed=1, device="cpu")
+            gpu = build_centernet(f32, seed=1)
+            calibrate_bn(gpu, images[2:6])
+            cpu.model.load_state_dict(gpu.model.state_dict())
+            parity = forward_parity_exact(cpu, gpu, images[:2])
+            emit({"phase": "backbones_forward_parity", "model": name, "batch": 2,
+                  "image_size": SIZE, "dtype": "float32", "tf32": False, **parity,
+                  "phase_s": time.perf_counter() - t_phase})
+            for key, p in parity.items():
+                if not p["card_vs_exact"] <= p["tolerance"]:
+                    raise AssertionError(f"{name} forward parity failed for {key}: {p}")
+            del cpu, gpu
+
+        # `stem_space_to_depth` on the flagship, same weights: the port runs
+        # the plain stem for it; the regrouped stem timed beside the plain
+        t_phase = time.perf_counter()
+        stem_preds = {}
+        for s2d in (False, True):
+            cfg = {"model": dict(FLAGSHIP_CFG, compute_dtype="bfloat16",
+                                 backbone_config={"stem_space_to_depth": s2d})}
+            stem_preds[s2d] = build_centernet(cfg, seed=0)
+        calibrate_bn(stem_preds[False], images[:8])
+        stem_preds[True].model.load_state_dict(stem_preds[False].model.state_dict())
+        dets, launches, logits = {}, {}, {}
+        for s2d, pred in stem_preds.items():
+            reset_launches()
+            dets[s2d] = pred.gather_detection2d(images)
+            launches[s2d] = read_launches()["peak_class_scores_cuda"]
+            with torch.inference_mode():
+                logits[s2d] = pred.model(pred.prepare_images(images))["heatmap"]
+        peak_launches += sum(launches.values())
+        same = (torch.equal(logits[True], logits[False])
+                and all(np.array_equal(dets[True][k], dets[False][k])
+                        for k in dets[False]))
+        w = stem_preds[False].model.backbone.conv1.weight.detach()
+        x32 = stem_preds[False].prepare_images(images[:8]).float().permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            ref = torch.nn.functional.conv2d(x32, w.float(), stride=2, padding=3)
+            got = stem_space_to_depth(x32, w.float())
+        regrouped_gap = ((got - ref).abs().max() / ref.abs().max()).item()
+        dev_images = torch.from_numpy(images).cuda()
+        with torch.inference_mode():
+            xb = stem_preds[False].prepare_images(dev_images).permute(0, 3, 1, 2)
+            stem_ms = repeated_ms({
+                "plain": functools.partial(stem_preds[True].model.backbone.conv1, xb),
+                "space_to_depth": functools.partial(stem_space_to_depth, xb, w)},
+                iters=20)
+        emit({"phase": "stem_space_to_depth", "model": "resnet34_fpn256",
+              "batch": BATCH, "image_size": SIZE, "dtype": "bfloat16",
+              "card": card, "launches": launches,
+              "logits_and_detections_equal_plain": same,
+              "regrouped_f32_vs_conv2d_rel_to_max": regrouped_gap,
+              "regrouped_f32_tolerance": STEM_F32_TOL, "stem_ms": stem_ms,
+              "phase_s": time.perf_counter() - t_phase})
+        if not (same and regrouped_gap <= STEM_F32_TOL
+                and all(n == 1 for n in launches.values())):
+            raise AssertionError("space-to-depth stem check failed")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # the flagship decode: top-k in lax.top_k's order, and as it was before
+    t_phase = time.perf_counter()
+    pred = stem_preds[False]
+    del stem_preds, logits
+    with torch.inference_mode():
+        outs = pred.model(pred.prepare_images(dev_images))
+        heat, box = outs["heatmap"], outs["box_2d"]
+        kw = dict(num_detections=100, stride=pred.task.stride, from_logits=True)
+
+        def decode_with(topk):
+            with patched(decode_ops, "_topk", topk):
+                return peak_decode.decode_detections_fused(heat, box, **kw)
+
+        repaired = functools.partial(decode_with, decode_ops._topk)
+        before = functools.partial(decode_with, topk_before_repair)
+        ms = repeated_ms({"before_repair": before, "repaired": repaired,
+                          "repaired_again": repaired, "before_repair_again": before},
+                         iters=20)
+        flat, labels_map = peak_decode.peak_class_scores_cuda(heat, True)
+        _, idx, _ = decode_ops._topk(flat, labels_map, 100, True)
+        _, old_idx, _ = topk_before_repair(flat, labels_map, 100, True)
+        order_ok = lax_order_holds(flat, idx)
+        ties = int((flat.gather(1, idx.long())[:, 1:]
+                    == flat.gather(1, idx.long())[:, :-1]).sum().item())
+    emit({"phase": "topk_repair", "batch": BATCH, "card": card,
+          "decode_fused_ms": ms, "lax_order_holds": order_ok,
+          "tied_neighbours_in_top100": ties,
+          "rows_ordered_differently_before": int(
+              (idx != old_idx).any(dim=1).sum().item()),
+          "phase_s": time.perf_counter() - t_phase})
+    if not order_ok:
+        raise AssertionError("the repaired top-k is not in lax.top_k's order")
+    del pred, outs, heat, box, dev_images
+    torch.cuda.empty_cache()
+
+    # a remat train step: ResNet-34 FPN-256 at b32 bf16, the flagship recipe
+    t_phase = time.perf_counter()
+    batch = detection_batches(1, REMAT_BATCH, SIZE, 80, "cuda", 12)[0]
+    results = {}
+    for run, remat in (("plain", False), ("remat", True), ("plain_again", False)):
+        cfg = dict(FLAGSHIP_CFG, **TRAIN_RECIPE)
+        cfg.pop("num_detections")
+        cfg.pop("image_size")
+        task = CenterNet(**cfg, backbone_config={"remat": remat})
+        task.init(torch.Generator().manual_seed(0))
+        task.model.to("cuda", memory_format=torch.channels_last)
+        start = {k: v.clone() for k, v in task.model.state_dict().items()}
+        remat_step(task, batch)                      # warm-up
+        task.model.load_state_dict(start)
+        results[run] = remat_step(task, batch)
+        del task
+        torch.cuda.empty_cache()
+    grads = {run: r[0] for run, r in results.items()}
+    stats = {run: {k: v for k, v in r[1].items() if k.endswith(("running_mean",
+                                                                "running_var"))}
+             for run, r in results.items()}
+    stats_moved = max((stats["plain"][k] - start[k]).abs().max().item()
+                      for k in stats["plain"])
+    stats_gap = max((stats["remat"][k] - stats["plain"][k]).abs().max().item()
+                    for k in stats["plain"]) / max(stats_moved, 1e-30)
+    res = {"grads_rel_l2_vs_plain": rel_l2(grads["remat"], grads["plain"]),
+           "grads_bitwise_equal_plain": all(torch.equal(grads["remat"][k],
+                                                        grads["plain"][k])
+                                            for k in grads["plain"]),
+           "plain_vs_plain_again_rel_l2": rel_l2(grads["plain_again"], grads["plain"]),
+           "bn_stats_gap_share_of_update": stats_gap,
+           "peak_GB": {run: r[2] for run, r in results.items()},
+           "step_ms": {run: r[3] for run, r in results.items()}}
+    emit({"phase": "remat_train_step", "model": "resnet34_fpn256",
+          "batch": REMAT_BATCH, "image_size": SIZE, "dtype": "bfloat16",
+          "card": card, **res, "tolerance": {
+              "grads_rel_l2": "plain_vs_plain_again_rel_l2",
+              "bn_stats_share": REMAT_STATS_TOL},
+          "phase_s": time.perf_counter() - t_phase})
+    if not (res["grads_rel_l2_vs_plain"] <= res["plain_vs_plain_again_rel_l2"]
+            and stats_gap <= REMAT_STATS_TOL
+            and res["peak_GB"]["remat"] < res["peak_GB"]["plain"]):
+        raise AssertionError(f"remat train step check failed: {res}")
+    del results, grads, stats, batch
+    torch.cuda.empty_cache()
+    return peak_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3226,6 +3594,10 @@ def main() -> int:
         raise AssertionError(f"fp16: expected one peak launch: {launches}")
     del hpred, dev_images
     torch.cuda.empty_cache()
+
+    # ---- 5c'. the remaining backbones, the ResNet options, the top-k order --
+    path_launches["peak_class_scores_cuda"] += backbone_phases(
+        card, reset_launches, read_launches, images)
 
     # ---- 5d. the tracking path: serving and FairMOT training ---------------
     track = tracking_phases(card, reset_launches, read_launches)

@@ -3,12 +3,21 @@
 Inputs and weights are made with seeded numpy and handed to both packages;
 JAX runs on the CPU and the port with device="cpu".
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from centernet_lightning_torch.utils.convert import variables_to_state_dict
+
+
+# The tests run beside other test processes (pytest-xdist) on small
+# models: torch on one intra-op thread keeps the processes from
+# oversubscribing the cores. Every worker imports this module as it
+# collects the port's tests.
+torch.set_num_threads(1)
 
 
 def to_numpy_tree(variables):
@@ -33,8 +42,10 @@ def perturb_batch_norm(variables, rng):
 
 
 def _is_bn(path) -> bool:
+    """A BatchNorm scope: flax's `BatchNorm_<i>`, or one named `*_bn` or
+    `*_bn<i>` (ResNet's `stem_bn`, DLA's `base_bn`, `level0_bn0`)."""
     keys = [getattr(p, "key", "") for p in path]
-    return any("BatchNorm" in k or k.endswith("_bn") for k in keys)
+    return any("BatchNorm" in k or re.search(r"_bn\d*$", k) for k in keys)
 
 
 def perturb_dcn(variables, rng, target=1.5):
@@ -117,16 +128,22 @@ NARROW_DARKNET = {"stage_blocks": (1, 2, 1, 1, 1),
                   "stage_filters": (16, 24, 32, 40, 48)}
 
 
-def backbone_parity(j, t, x, rng, tol=dict(rtol=1e-4, atol=1e-4)):
+def backbone_parity(j, t, x, rng, tol=dict(rtol=1e-4, atol=1e-4), jit=False):
     """A flax backbone and the port's on the same input and converted
     weights (BatchNorm perturbed): the pyramids must agree within `tol`.
-    Returns the port's pyramid."""
-    v = perturb_batch_norm(
-        to_numpy_tree(j.init(jax.random.PRNGKey(0), jnp.asarray(x))), rng)
+    `jit` draws the weights from the traced parameter shapes
+    (`random_module_variables`) and compiles the flax apply whole, which
+    is faster than initialising and applying op by op for a deep
+    backbone. Returns the port's pyramid."""
+    if jit:
+        v, apply = random_module_variables(j, x, rng), jax.jit(j.apply)
+    else:
+        v, apply = perturb_batch_norm(to_numpy_tree(
+            j.init(jax.random.PRNGKey(0), jnp.asarray(x))), rng), j.apply
     t.load_state_dict(scoped_state_dict(v, "backbone", "backbone."),
                       strict=True)
     t.eval()
-    refs = j.apply(v, jnp.asarray(x))
+    refs = apply(v, jnp.asarray(x))
     with torch.no_grad():
         gots = t(nchw(x))
     assert list(t.out_channels) == list(j.out_channels)
@@ -137,13 +154,77 @@ def backbone_parity(j, t, x, rng, tol=dict(rtol=1e-4, atol=1e-4)):
     return gots
 
 
+def jax_param_count(j, shape=(1, 64, 64, 3)) -> int:
+    """Parameters of a flax module, traced (`jax.eval_shape`), not run."""
+    tree = jax.eval_shape(j.init, jax.random.PRNGKey(0),
+                          jax.ShapeDtypeStruct(shape, jnp.float32))
+    return sum(int(np.prod(x.shape))
+               for x in jax.tree_util.tree_leaves(tree["params"]))
+
+
+def serving_slice_parity(model_cfg, rng, size=64, min_distinct=10):
+    """The whole serving slice of `model_cfg` (a model config dict) on
+    seeded uint8 images: the port's `build_centernet` (on the CPU) and its
+    `gather_detection2d`, against the JAX model with the same weights
+    (`random_flax_variables`, traced rather than initialised; the heatmap
+    head's output kernel scaled to logits of std 1.5) applied to the same
+    preprocessed images, and its decode of them. Head logits within rtol
+    1e-4 / atol 1e-4 of their largest magnitude; the detections as
+    `assert_detections_match` holds them. Returns the port's predictor."""
+    from centernet_lightning_tpu.models.centernet import CenterNet as JCenterNet
+    from centernet_lightning_tpu.ops.preprocess import preprocess
+
+    from centernet_lightning_torch import build_centernet as t_build
+
+    cfg = dict(model_cfg, image_size=[size, size])
+    jtask = JCenterNet(**{k: v for k, v in cfg.items()
+                          if k in JCenterNet.__dataclass_fields__})
+    variables = random_flax_variables(jtask, rng, image_size=(size, size))
+    tp = t_build({"model": cfg}, device="cpu")
+    images = rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    x = np.array(preprocess(jnp.asarray(images)))
+    # scale the heatmap head's output kernel so its logits have a std near
+    # 1.5: seeded weights reach logits in the hundreds on some models
+    # (DLA), whose scores then all tie at 1.0
+    tp.model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    with torch.no_grad():
+        std = tp(x)["heatmap"].std().item()
+    out_conv = variables["params"]["heads_heatmap"]["out_conv"]
+    out_conv["kernel"] = (out_conv["kernel"] * (1.5 / std)).astype(np.float32)
+    tp.model.load_state_dict(variables_to_state_dict(variables), strict=True)
+    ref_enc = jax.jit(jtask.model.apply)(variables, jnp.asarray(x))
+    with torch.no_grad():
+        got_enc = tp(x)
+    for key in ("heatmap", "box_2d"):
+        r = np.asarray(ref_enc[key])
+        np.testing.assert_allclose(got_enc[key].numpy(), r, rtol=1e-4,
+                                   atol=1e-4 * np.abs(r).max(), err_msg=key)
+    ref = jtask.decode_detections(ref_enc["heatmap"], ref_enc["box_2d"],
+                                  from_logits=True)
+    got = tp.gather_detection2d(images)
+    ref = {"bboxes" if k == "boxes" else k: np.asarray(v) for k, v in ref.items()}
+    assert_detections_match(ref, got,
+                            min_distinct=min_distinct, rtol=1e-4, atol=1e-4)
+    return tp
+
+
 def random_flax_variables(task, rng, image_size=(32, 32)):
     """Seeded variables in the shapes of a JAX task's model, traced rather
     than run: convolution kernels he-normal over their fan-in, biases
     small, BatchNorm near the identity with non-trivial statistics, and
     the heatmap head's bias at the prior. Numpy leaves."""
-    shapes = jax.eval_shape(lambda key: task.init(key, image_size=image_size),
-                            jax.random.PRNGKey(0))
+    return _draw_variables(jax.eval_shape(
+        lambda key: task.init(key, image_size=image_size),
+        jax.random.PRNGKey(0)), rng)
+
+
+def random_module_variables(module, x, rng):
+    """`random_flax_variables` for a flax module applied to `x`."""
+    return _draw_variables(jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                                          jnp.asarray(x)), rng)
+
+
+def _draw_variables(shapes, rng):
 
     def draw(path, s):
         keys = [getattr(p, "key", "") for p in path]

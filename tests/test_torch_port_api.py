@@ -167,13 +167,19 @@ def test_build_from_yaml_and_deferred_options(tmp_path):
     assert next(pred.model.parameters()).dtype == torch.bfloat16
     dets = pred.gather_detection2d(np.zeros((1, 64, 64, 3), np.uint8))
     assert dets["scores"].dtype == np.float32 and np.isfinite(dets["bboxes"]).all()
-    for bad, where in [
-        ({"backbone": "dla34"}, "item 2b"),
-        ({"backbone_config": {"stem_space_to_depth": True}}, "item 2b"),
-        ({"backbone_config": {"remat": True}}, "item 2b"),
+    # the options and backbones once deferred now build and serve
+    for extra, check in [
+        ({"backbone": "dla34", "backbone_config": {"channels": [8, 8, 16, 16, 24, 24]}},
+         lambda bb: type(bb).__name__ == "DLA"),
+        ({"backbone_config": {"width": 16, "stem_space_to_depth": True}},
+         lambda bb: type(bb).__name__ == "ResNet"),
+        ({"backbone_config": {"width": 16, "remat": True}},
+         lambda bb: bb.remat),
     ]:
-        with pytest.raises(NotImplementedError, match=where):
-            t_build({"model": {**TINY, **bad}}, device="cpu")
+        built = t_build({"model": {**TINY, **extra}}, device="cpu")
+        assert check(built.model.backbone), extra
+        dets = built.gather_detection2d(np.zeros((1, 64, 64, 3), np.uint8))
+        assert dets["scores"].shape == (1, TINY["num_detections"])
     # checkpoints load now (test_torch_port_train.py); a run directory
     # without one is an error
     with pytest.raises(FileNotFoundError):

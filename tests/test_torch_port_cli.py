@@ -362,7 +362,7 @@ def test_track_cli_equal_jax(mot_sequence, tmp_path, monkeypatch, capsys,
     j_dir, t_dir = checkpoints(tmp_path, (JFairMOT, FairMOT), cfg, 3)
     args = ["--frames", frames, "--batch-size", "2", "--eval-gt", gt_root,
             "--seq", "SEQ-01", "--tracker", "detection_threshold=0.0",
-            "min_birth_age=1", "num_detections=4"]
+            "min_birth_age=1"]
     j_sum = last_json(run_jax_main(
         os.path.join(REPO, "tools", "track.py"),
         args + ["--checkpoint", j_dir, "--out", str(tmp_path / "j")],

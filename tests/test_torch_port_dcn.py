@@ -321,6 +321,30 @@ def test_kernel_size_5_raises_on_shift_engines_and_matches_jax_on_exact():
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+@pytest.mark.parametrize("k,version", [(2, 2), (4, 2), (4, 1)])
+def test_even_kernel_block_matches_jax(k, version):
+    """An even k on the exact engine: SAME offset and mask convolutions pad
+    (k - 1) // 2 low and k // 2 high (at stride 1 whatever the size), taps
+    start at -(k - 1) // 2; offsets past +-1."""
+    for sampler in ("auto", "fused"):
+        with pytest.raises(ValueError, match="kernel_size=3 only"):
+            t_layers.DeformableConvBlock(3, 4, kernel_size=k,
+                                         max_displacement=1, sampler=sampler)
+    rng = np.random.default_rng(60 + k + version)
+    x = rng.normal(size=(2, 7, 8, 3)).astype(np.float32)
+    j = j_layers.DeformableConvBlock(5, kernel_size=k, version=version)
+    v = init_flax_dcn(j, jnp.asarray(x), rng)
+    t = t_layers.DeformableConvBlock(3, 5, kernel_size=k, version=version)
+    t.load_state_dict(scoped_state_dict(v, "DeformableConvBlock_0",
+                                        "blocks.0."), strict=True)
+    t.eval()
+    ref = np.asarray(j.apply(v, jnp.asarray(x), train=False))
+    with torch.no_grad():
+        got = nhwc(t(nchw(x)))
+    assert got.shape == (2, 7, 8, 5)
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
 def test_registry_and_init():
     for name in DCN_TYPES:
         blk = t_layers.get_conv_block(name)(4, 6, 3)

@@ -191,23 +191,78 @@ def test_decode_golden():
 
 
 def test_topk_tie_convention():
-    """The port's documented convention (ops/decode.py): sorted scores
-    equal the reference's; tied scores may come in any index order, but
-    each returned (index, label, score) is a real entry of the peak map."""
+    """Ties come in `lax.top_k`'s order (ops/decode.py): lower flat index
+    first, so the indices, labels and scores equal the reference's in
+    order, not merely as a set."""
     heat = np.zeros((1, 6, 6, 2), np.float32)
     heat[0, ::3, ::3, 1] = 0.5            # four tied isolated peaks
     heat[0, 4, 4, 0] = 0.9
-    ref = J.decode_detections(jnp.asarray(heat), jnp.zeros((1, 6, 6, 4)),
-                              num_detections=8)
+    ref = J.get_topk_from_heatmap(jnp.asarray(heat), num_detections=8)
     got = T.get_topk_from_heatmap(torch.from_numpy(heat), num_detections=8)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
     scores, idx, labels = (t.numpy()[0] for t in got)
-    np.testing.assert_array_equal(scores, np.asarray(ref["scores"])[0])
-    np.testing.assert_array_equal(labels[:5], [0, 1, 1, 1, 1])
     assert idx[0] == 4 * 6 + 4
-    assert sorted(idx[1:5]) == [0, 3, 18, 21]     # the tied set, any order
-    flat_scores, flat_labels = T.peak_class_scores(torch.from_numpy(heat))
-    np.testing.assert_array_equal(flat_scores.numpy()[0][idx], scores)
-    np.testing.assert_array_equal(flat_labels.numpy()[0][idx], labels)
+    np.testing.assert_array_equal(idx[1:5], [0, 3, 18, 21])
+    np.testing.assert_array_equal(labels[:5], [0, 1, 1, 1, 1])
+    # the suppressed zeros after them, lowest index first as well
+    np.testing.assert_array_equal(idx[5:], [1, 2, 4])
+
+
+def _tie_maps(rng):
+    """(name, (N, H, W, C) f32 map, k) cases of ties: among live peaks
+    (scores on a coarse grid), among the suppressed zeros, and across the
+    k-th place."""
+    n, h, w, c = 3, 12, 16, 4
+    coarse = np.round(rng.uniform(0, 1, (n, h, w, c)) * 4) / 4
+    sparse = np.zeros((n, h, w, c))
+    sparse[:, ::4, ::5, 1] = 0.75          # tied isolated peaks, then zeros
+    sparse[:, 2, 2, 3] = 0.9
+    straddle = np.zeros((n, h, w, c))
+    straddle[:, ::3, ::3, 2] = 0.5         # 20 tied peaks; k = 7 cuts them
+    straddle[:, 1, 7, 0] = 0.8
+    return [("live", coarse, 40), ("zeros", sparse, 60),
+            ("kth_place", straddle, 7)]
+
+
+@pytest.mark.parametrize("caller", ["plain", "fused"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_topk_indices_equal_lax_top_k(caller, dtype):
+    """Both callers of `_topk` (the plain decode and the fused decode,
+    whose peak stage on a CPU tensor is the kernel's twin) return
+    `lax.top_k`'s indices in its order, on ties among live scores, among
+    suppressed zeros and across the k-th place, with the labels and boxes
+    that go with them."""
+    rng = np.random.default_rng(11)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    for name, heat, k in _tie_maps(rng):
+        heat = heat.astype(np.float32)
+        box = rng.uniform(0, 4, heat.shape[:3] + (4,)).astype(np.float32)
+        ref = J.decode_detections(jnp.asarray(heat).astype(jdt),
+                                  jnp.asarray(box), num_detections=k)
+        th, tb = torch.from_numpy(heat).to(tdt), torch.from_numpy(box)
+        fn = T.decode_detections if caller == "plain" else TP.decode_detections_fused
+        got = fn(th, tb, num_detections=k)
+        # a box's centre is its pixel: equal boxes are equal indices
+        for key in ("labels", "scores", "boxes"):
+            np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                          err_msg=f"{name} {key}")
+        _, ref_idx, _ = J.get_topk_from_heatmap(jnp.asarray(heat).astype(jdt), k)
+        _, idx, _ = T.get_topk_from_heatmap(th, k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+
+
+def test_topk_order_of_nan_and_signed_zero():
+    """The total order of `lax.top_k`: +NaN above +inf, +0.0 above -0.0,
+    -NaN below -inf; equal values lower index first."""
+    x = np.array([[1.0, np.nan, 2.0, -0.0, 0.0, -np.nan, np.inf, -np.inf,
+                   0.0, -0.0, 1.0]], np.float32)
+    ref_s, ref_i = jax.lax.top_k(jnp.asarray(x), x.shape[1])
+    labels = torch.zeros(x.shape, dtype=torch.int32)
+    s, i, _ = T._topk(torch.from_numpy(x), labels, x.shape[1], False)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
+    np.testing.assert_array_equal(np.signbit(s.numpy()), np.signbit(np.asarray(ref_s)))
 
 
 def test_decode_auto_takes_plain_path_on_cpu():

@@ -184,6 +184,16 @@ FAMILIES = {
         backbone="resnet34", backbone_config={"width": 8},
         neck="SimpleNeck", neck_config={"upsample_channels": [16, 12, 8],
                                         "upsample_type": "conv_transpose"}),
+    "vovnet39_fpn": dict(
+        backbone="vovnet39", backbone_config={
+            "stage_channels": (8, 8, 12, 12), "concat_channels": (16, 16, 24, 24)},
+        neck="FPN", neck_config={"out_channels": 16}),
+    "dla34_ida": dict(
+        backbone="dla34", backbone_config={"channels": (8, 12, 16, 16, 24, 32)},
+        neck="IDA", neck_config={"out_channels": 16}),
+    "efficientnet_b0_separable_fpn": dict(
+        backbone="efficientnet_b0", backbone_config={"width_mult": 0.25},
+        neck="FPN", neck_config={"out_channels": 16, "conv_type": "separable"}),
     "fairmot_reid": dict(backbone="resnet18", backbone_config={"width": 16},
                          neck="FPN", neck_config={"out_channels": 16},
                          reid_config={"emb_dim": 16, "max_track_ids": 8,
@@ -228,10 +238,17 @@ def test_calibration_scales_match_jax(family):
     assert not any(type(convs[n]).__name__ == "ConvTranspose2d" for n in t_scales)
     if "dcn" in family:
         assert not any("conv_offset" in n or "conv_mask" in n for n in t_scales)
-    if "mobilenet" in family:
+    if "mobilenet" in family or "efficientnet" in family:
         assert all(convs[n].groups == 1 for n in t_scales)
         assert any(m.groups > 1 for m in convs.values()
                    if isinstance(m, torch.nn.Conv2d))
+    # the squeeze-excite 1x1 convs are flax nn.Convs, quantized in JAX too;
+    # DLA's dropped projection is called, so calibrated
+    wanted = {"vovnet": ".ese.conv", "efficientnet": ".se.reduce",
+              "dla": "level4.project_conv"}
+    for key, part in wanted.items():
+        if key in family:
+            assert any(n.endswith(part) for n in t_scales), part
 
 
 @pytest.mark.parametrize("family", ["resnet18_fpn"])

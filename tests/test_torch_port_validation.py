@@ -269,14 +269,7 @@ def test_validation_on_converted_weights_matches_jax(tracking, request, monkeypa
     batches = track_batches(frames=(4, 2)) if tracking else det_batches()
     jt = request.getfixturevalue("jax_track" if tracking else "jax_det")
     tt = port_trainer((FairMOT(**TRACK) if tracking else CenterNet(**SMALL)),
-                      val=batches)
-    if tracking:
-        # suppressed pixels score 0, and the decodes order such ties apart
-        # (lax.top_k by index, torch.topk in no promised order): the
-        # tracker takes no detection at 0
-        tracker = dict(TRACKER, detection_threshold=0.01)
-        monkeypatch.setattr(jt, "tracker_config", tracker)
-        tt.tracker_config = tracker
+                      val=batches, **({"tracker_config": TRACKER} if tracking else {}))
     _converted_pair(jt, tt, seed=21, monkeypatch=monkeypatch)
     dets = [jax.device_get(jt.eval_step(jt.state, jt._shard(b))) for b in batches]
     batches = _ground_truth_from(dets, batches, tracking)
