@@ -10,9 +10,16 @@ log_every_n_steps, precision, gradient_clip_val, accumulate_grad_batches,
 ema_decay, the ModelCheckpoint monitor, the logger). The run directory gets
 the resolved `config.yaml`, `checkpoints/` (with `best/`) and `logs/`
 (`metrics.jsonl`). One process on one device (`--device`, the card unless
-`--device cpu`); multi-process training (the JAX CLI's `--multihost`) waits
-for DDP. A card's machine without OpenCV trains from packs
+`--device cpu`). A card's machine without OpenCV trains from packs
 (`type: packed`, made by `cli/pack_dataset.py`).
+
+`--multihost` trains data-parallel, one process a device, in the process
+group that torchrun's environment describes (NCCL on `cuda:LOCAL_RANK`,
+gloo with `--device cpu`); each process trains on its shard of the data,
+and only rank 0 writes the run directory and prints:
+
+    torchrun --nproc_per_node 8 -m centernet_lightning_torch.cli.train \
+        --multihost --config configs/centernet.yaml --workdir runs/coco
 """
 from __future__ import annotations
 
@@ -20,9 +27,12 @@ import argparse
 import os
 from typing import Optional, Sequence
 
+import torch.distributed
+
 from ..data.builder import loader_from_config
 from ..models.centernet import CenterNet
 from ..models.fairmot import FairMOT
+from ..parallel import dist
 from ..train.config import load_config, normalize_config
 from ..train.trainer import Trainer
 
@@ -31,9 +41,7 @@ __all__ = ["main"]
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
-        description="Train CenterNet/FairMOT (PyTorch port)",
-        epilog="Multi-process training (the JAX CLI's --multihost) is not "
-               "ported yet: it waits for DDP (ROADMAP Queue 1 item 6).")
+        description="Train CenterNet/FairMOT (PyTorch port)")
     parser.add_argument("--config", required=True, help="YAML config path")
     parser.add_argument("--workdir", default="runs/default",
                         help="checkpoints + logs")
@@ -45,10 +53,27 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default: cuda; cpu "
                              "runs the plain PyTorch versions of the kernels)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="data-parallel over the processes torchrun "
+                             "starts (RANK, WORLD_SIZE, LOCAL_RANK, "
+                             "MASTER_ADDR, MASTER_PORT): NCCL on "
+                             "cuda:LOCAL_RANK, gloo with --device cpu")
     args = parser.parse_args(argv)
 
+    own_group = args.multihost and not torch.distributed.is_initialized()
+    device = (dist.init_from_env(args.device) if args.multihost
+              else args.device)
+    try:
+        return _train(args, device)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device) -> int:
     config = normalize_config(load_config(args.config))
-    _save_resolved_config(config, args.workdir)
+    if dist.process_index() == 0:
+        _save_resolved_config(config, args.workdir)
     model_cfg = dict(config["model"])
     trainer_cfg = dict(config.get("trainer", {}))
 
@@ -61,7 +86,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # consumed by the Trainer below, not the task dataclass
     trainer_model_keys = {"load_from_checkpoint", "finetune_from"}
     for k in model_cfg:
-        if k not in task_cls.__dataclass_fields__ and k not in trainer_model_keys:
+        if (k not in task_cls.__dataclass_fields__
+                and k not in trainer_model_keys and dist.process_index() == 0):
             print(f"WARNING: model config key '{k}' is not a "
                   f"{task_cls.__name__} hparam and is ignored")
     task_kwargs["train_data"] = train_data
@@ -112,7 +138,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         finetune_from=(model_cfg.get("load_from_checkpoint")
                        or model_cfg.get("finetune_from")),
         logger_config=_parse_logger_config(trainer_cfg.get("logger")),
-        device=args.device,
+        device=device,
     )
     trainer.fit()
     return 0

@@ -1,5 +1,5 @@
 """Dataset/dataloader registry (a copy of the JAX package's data/builder.py;
-the multi-process sharding by rank waits for DDP, ROADMAP Queue 1 item 6).
+over several processes a training loader takes this rank's shard).
 
 Restores the reference's Gen-A builder API (reference
 datasets/builder.py:17-59): name registry {coco, voc, crowdhuman,
@@ -19,6 +19,7 @@ from .loader import DataLoader
 from .mot import MOTTrackingDataset
 from .transforms import build_transforms
 from .voc import VOCDataset
+from ..parallel import dist
 
 __all__ = ["DATASETS", "build_dataset", "build_dataloader", "parse_transforms",
            "loader_from_config"]
@@ -113,12 +114,17 @@ def loader_from_config(config, train: bool, seed=None):
     config overrides the train/eval default."""
     cfg = dict(config)
     cfg.setdefault("type", "coco")
+    if (train and "shard_id" not in cfg and "num_shards" not in cfg
+            and dist.process_count() > 1):
+        # data parallelism: each process trains on its rank-interleaved
+        # slice of one global epoch, the shards of equal length so that
+        # the processes stay in step. Validation loaders stay whole: the
+        # Trainer splits the validation work itself
+        cfg["num_shards"] = dist.process_count()
+        cfg["shard_id"] = dist.process_index()
     if cfg["type"] == "packed":
         # the memory-mapped cache (cli/pack_dataset.py, data/packed.py):
-        # batch assembly is a fancy-index per array and no image is decoded.
-        # One process reads the whole pack; sharding by rank waits for DDP
-        # (ROADMAP Queue 1 item 6), so an explicit shard_id/num_shards is
-        # the only sharding
+        # batch assembly is a fancy-index per array and no image is decoded
         from .packed import PackedLoader
 
         return PackedLoader(

@@ -15,6 +15,7 @@ import torch
 from ..ops import decode as decode_ops
 from ..ops import losses as loss_ops
 from ..ops import targets as target_ops
+from ..parallel import dist
 from .meta import create_model, init_weights
 
 __all__ = ["CenterNet", "load_state_file"]
@@ -118,7 +119,8 @@ class CenterNet:
         """Detection losses over one padded batch, in f32 whatever the
         forward's dtype: {heatmap: focal loss / max(1, boxes), box_2d: box
         loss over the S x S centre samples / max(1, samples), total:
-        their weighted sum}.
+        their weighted sum}. Over several processes the two counts are the
+        global batch's (`parallel.dist.global_normalizer`).
 
         outputs: {heatmap (N, H, W, C) logits, box_2d (N, H, W, 4)};
         targets: {boxes (N, K, 4) xywh input coords, labels, mask (N, K)}.
@@ -136,7 +138,7 @@ class CenterNet:
             self._radius_fn)
         heatmap_loss = loss_ops.reduce_loss(
             self._heatmap_loss_fn(heatmap, target_heatmap), "sum",
-            norm=torch.clamp(mask.sum(), min=1.0))
+            norm=dist.global_normalizer(mask.sum(), floor=1.0))
 
         idx, sample_mask, target_xyxy = target_ops.center_sample_indices(
             boxes, mask, out_h, out_w, stride,
@@ -147,7 +149,7 @@ class CenterNet:
         box_loss = loss_ops.reduce_loss(
             self._box_loss_fn(pred_boxes, target_xyxy), "sum",
             weights=sample_mask[..., None],
-            norm=torch.clamp(sample_mask.sum(), min=1.0))
+            norm=dist.global_normalizer(sample_mask.sum(), floor=1.0))
 
         total = (heatmap_loss * self.heatmap_loss_weight
                  + box_loss * self.box_loss_weight)

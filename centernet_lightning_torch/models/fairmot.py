@@ -7,6 +7,9 @@ the ReID loss to the detection losses: the embeddings are gathered at the
 ground-truth box centres, and the identity objective is the classifier's
 masked cross-entropy ("ce", the default) or a triplet margin loss on the
 embeddings themselves ("triplet"), per `reid_config["loss_function"]`.
+Over several processes both are the global batch's: the cross-entropy
+divides by the global count, the triplet loss pairs the gathered rows of
+every process.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from ..ops.decode import gather_at_indices
 from ..ops.losses import reid_cross_entropy_loss, reid_triplet_loss
+from ..parallel import dist
 from .centernet import CenterNet
 
 __all__ = ["FairMOT"]
@@ -60,11 +64,16 @@ class FairMOT(CenterNet):
         ids = batch["ids"].reshape(-1).long()
         mask = batch["mask"].reshape(-1).float()
         if (self.reid_config or {}).get("loss_function", "ce") == "triplet":
+            # the pairs span the global batch: every process scores the
+            # same gathered rows
             emb = gather_at_indices(outputs["reid"], indices)
             reid_loss = reid_triplet_loss(
-                emb.reshape(-1, emb.shape[-1]).float(), ids, mask)
+                dist.gather_rows(emb.reshape(-1, emb.shape[-1]).float()),
+                dist.gather_rows(ids), dist.gather_rows(mask))
         else:
-            reid_loss = reid_cross_entropy_loss(logits.float(), ids, mask)
+            reid_loss = reid_cross_entropy_loss(
+                logits.float(), ids, mask,
+                norm=dist.global_normalizer(mask.sum(), eps=1e-8))
         total = losses["total"] + reid_loss * self.reid_loss_weight
         return {**losses, "reid": reid_loss, "total": total}
 

@@ -10,7 +10,8 @@ BatchNorm keeps flax's settings: eps 1e-5, and flax `momentum=0.9` (weight
 of the running value) is torch `momentum=0.1` (weight of the new batch).
 In train mode it also keeps flax's running-variance update, which takes
 the biased batch variance (torch's own `BatchNorm2d` takes the unbiased
-one, n/(n-1) larger).
+one, n/(n-1) larger). Over several processes the train-mode statistics are
+the global batch's (`_FlaxStatistics._global_batch_norm`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import dcn as dcn_ops
+from ..parallel import dist
 from ..ops import dcn_fused, dcn_sample
 
 __all__ = ["BatchNorm1d", "BatchNorm2d", "ConvNormAct", "SeparableConvNormAct",
@@ -72,17 +74,44 @@ class _FlaxStatistics:
                 stats = tuple(s.to(x.dtype) for s in stats)
             return F.batch_norm(x, *stats, self.weight, self.bias, False,
                                 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if dist.process_count() > 1:
+            y, mean, var = self._global_batch_norm(x)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = None
         if _RECOMPUTE.depth:
             return y
         with torch.no_grad():
-            var = invstd.float().pow(-2) - self.eps
+            if var is None:
+                var = invstd.float().pow(-2) - self.eps
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(mean.float(), alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.running_var.mul_(1 - m).add_(var.float(), alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """Train mode over the processes' global batch (SyncBN, as BatchNorm
+        under the JAX package's data-parallel jit): the per-channel count,
+        sum and sum of squares in f32 are summed over the processes through
+        a differentiable all-reduce, then mean = sum / n and the biased
+        var = max(0, sum_sq / n - mean^2), as flax computes them. Returns
+        (y in x's dtype, mean, var)."""
+        c = x.shape[1]
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, c] + [1] * (x.dim() - 2)
+        xf = x.float()
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                          xf.new_full((1,), x.numel() // c)])
+        sums = dist.all_reduce_sum(sums)
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.view(shape)) * scale.view(shape) \
+            + self.bias.float().view(shape)
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 class BatchNorm2d(_FlaxStatistics, nn.BatchNorm2d):

@@ -139,15 +139,18 @@ def ciou_loss(pred: torch.Tensor, target: torch.Tensor,
 
 def reid_cross_entropy_loss(logits: torch.Tensor, ids: torch.Tensor,
                             mask: Optional[torch.Tensor] = None,
-                            eps: float = 1e-8) -> torch.Tensor:
+                            eps: float = 1e-8,
+                            norm: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Masked identity cross-entropy over (M, num_ids) logits: the mean
-    over the rows whose mask is set (sum / (mask sum + eps))."""
+    over the rows whose mask is set (sum / (mask sum + eps)); `norm`
+    replaces the divisor (a global batch's count)."""
     log_probs = F.log_softmax(logits, dim=-1)
     ce = -torch.gather(log_probs, 1, ids.long()[:, None])[:, 0]
     if mask is None:
         return ce.mean()
     mask = mask.to(ce.dtype)
-    return (ce * mask).sum() / (mask.sum() + eps)
+    return (ce * mask).sum() / (mask.sum() + eps if norm is None else norm)
 
 
 def reid_triplet_loss(embeddings: torch.Tensor, ids: torch.Tensor,

@@ -14,6 +14,8 @@ rules to the model's parameters, named as in its `state_dict`:
     not by name;
   - `gradient_clip_val`: optax `clip_by_global_norm` over every gradient,
     before everything else;
+  - over several processes the gradients are first averaged over them
+    (`parallel.dist.mean_gradients`, one flat all-reduce an update);
   - schedules: LinearLR warmup then cosine, or OneCycleLR with momentum
     (Adam's beta1) cycling, evaluated in float32 as the JAX package does;
   - `MultiSteps`: optax.MultiSteps, the mean of k micro-batch gradients
@@ -29,6 +31,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel import dist
 
 __all__ = ["Optimizer", "MultiSteps", "make_optimizer", "make_lr_schedule",
            "make_onecycle_schedule", "make_onecycle_momentum_schedule",
@@ -254,6 +258,10 @@ class Optimizer:
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor],
                grads: Dict[str, torch.Tensor]) -> None:
+        # over several processes the update sees the global batch's
+        # gradient, as optax does under the data-parallel jit: the mean
+        # comes before the clip, once an update (after MultiSteps' mean)
+        grads = dist.mean_gradients(grads)
         if self.clip:
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
             keep = g_norm < self.clip

@@ -11,6 +11,13 @@ f32 through the cast, and BatchNorm keeps f32 running statistics); the
 losses in f32 (the task's `train_forward` when it has one, as FairMOT
 does, else its `compute_loss` on the forward); the gradient; the optimizer
 update; the EMA.
+
+Over several processes (`parallel/dist.py`) each takes the step on its
+slice of the global batch: BatchNorm's statistics and the losses' counts
+are the global batch's, the optimizer averages the gradients over the
+processes before it clips, and the losses returned are the global ones.
+The model is not wrapped in DistributedDataParallel, whose hooks would
+not see the gradients of the bf16 `functional_call` copies.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
+from ..parallel import dist
 from .optim import named_grads
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step", "to_device"]
@@ -131,7 +139,8 @@ def make_train_step(task, compute_dtype: Optional[Any] = None,
             with torch.no_grad():
                 for k, e in state.ema_params.items():
                     e.copy_(e * d + params[k] * (1.0 - d))
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, dist.mean_losses({k: v.detach()
+                                        for k, v in losses.items()})
 
     return train_step
 

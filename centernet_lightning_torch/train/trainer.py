@@ -24,8 +24,17 @@ first validation batch the predictions, the score histogram and the
 backbone's channel means), best-effort, one warning a run when they fail;
 an optional torch.profiler trace of the first epoch under
 `ckpt_dir/profile`; and a graceful stop on SIGTERM or SIGINT (finish the
-step, checkpoint, return). Multi-process gathers (DDP) are not ported
-(ROADMAP Queue 1 item 6).
+step, checkpoint, return).
+
+Over several processes (one a device, `parallel/dist.py`) the step is the
+global batch's (the loaders' batch times the processes): rank 0's weights
+are broadcast after init, resume and `finetune_from`; only rank 0 logs,
+checkpoints, draws diagnostics and profiles (the others wait at a barrier
+after a save); the processes agree on a stop every 10 steps; detection
+validation splits the batches in contiguous blocks and unions the
+predictions and targets, tracking validation gives each process whole
+sequences (`sequence_id % processes`) and unions the per-sequence
+results, so every process scores what one process would.
 """
 from __future__ import annotations
 
@@ -34,7 +43,7 @@ import os
 import signal
 import time
 import warnings
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +52,7 @@ from ..eval.coco_eval import CocoEvaluator
 from ..eval.mot import evaluate_mot_tracking_sequences
 from ..models.meta import param_count_report
 from ..models.tracker import Tracker
+from ..parallel import dist
 from ..utils import transfer
 from ..utils.box_np import convert_box_format
 from .checkpoint import (latest_checkpoint, load_checkpoint, restore_partial,
@@ -52,7 +62,14 @@ from .optim import MultiSteps, make_optimizer, schedule_from_config
 from .state import (TrainState, _mean_std, make_eval_step, make_train_step,
                     to_device)
 
-__all__ = ["Trainer"]
+__all__ = ["Trainer", "allgather_tracking_results"]
+
+# the validation merge's schemas (key -> (trailing shape, dtype)), the JAX
+# Trainer's
+PRED_SCHEMA = {"boxes": ((4,), np.float64), "scores": ((), np.float64),
+               "labels": ((), np.int64)}
+TARGET_SCHEMA = {"boxes": ((4,), np.float64), "labels": ((), np.int64),
+                 "iscrowd": ((), np.int64), "area": ((), np.float64)}
 
 
 class Trainer:
@@ -97,11 +114,15 @@ class Trainer:
         self.log_every = log_every
         self.diagnostics = diagnostics
         self.device = torch.device(device)
+        self.rank, self.world = dist.process_index(), dist.process_count()
         lc = dict(logger_config or {})
-        self.logger = MetricLogger(
-            log_dir, backends=tuple(lc.get("backends", ("tensorboard",))),
-            project=lc.get("project"), run_name=lc.get("run_name"),
-            config=task.hparams)
+        if self.rank == 0:
+            self.logger = MetricLogger(
+                log_dir, backends=tuple(lc.get("backends", ("tensorboard",))),
+                project=lc.get("project"), run_name=lc.get("run_name"),
+                config=task.hparams)
+        else:  # one writer a job
+            self.logger = MetricLogger(None, backends=())
 
         opt_cfg = dict(optimizer_config or task.optimizer_config or {})
         opt_cfg.pop("jit", None)
@@ -146,6 +167,9 @@ class Trainer:
         self.start_epoch = 0
         self.best_metric = -math.inf if monitor_mode == "max" else math.inf
         self._maybe_resume()
+        # every process starts from rank 0's weights (each resumed from the
+        # same checkpoint, so the optimizer's state agrees already)
+        dist.broadcast_module(model)
 
         compute_dtype = ("bfloat16" if str(precision) in ("16", "bf16", "bfloat16")
                          else None)
@@ -179,13 +203,18 @@ class Trainer:
                 for k, p in self.state.model.named_parameters()}
         self.start_epoch = int(restored.get("epoch", 0))
         self.best_metric = float(restored.get("best_metric", self.best_metric))
-        print(f"resumed from {latest} (epoch {self.start_epoch})")
+        if self.rank == 0:
+            print(f"resumed from {latest} (epoch {self.start_epoch})")
 
     def _save(self, epoch: int, tag: Optional[str] = None) -> None:
         """A checkpoint of the state after `epoch` epochs: untagged into
         `ckpt_dir` (the newest 3 kept), tagged into `ckpt_dir/<tag>` (the
-        newest 1 kept), as the best checkpoint is."""
+        newest 1 kept), as the best checkpoint is. Rank 0 writes; every
+        process returns once it is written."""
         if not self.ckpt_dir:
+            return
+        if self.rank != 0:
+            dist.barrier()
             return
         tree = {"model": self.state.model.state_dict(),
                 "opt_state": self.state.tx.state_dict(),
@@ -196,6 +225,7 @@ class Trainer:
         ckpt_dir = os.path.join(self.ckpt_dir, tag) if tag else self.ckpt_dir
         save_checkpoint(ckpt_dir, tree, hparams=self.task.hparams,
                         step=self.state.step, keep_last=1 if tag else 3)
+        dist.barrier()
 
     # ------------------------------------------------------------------
 
@@ -214,8 +244,9 @@ class Trainer:
                 os.kill(os.getpid(), signum)
                 return
             self._stop_requested = True
-            print(f"signal {signum}: stopping after the current step "
-                  f"(checkpoint + clean exit); repeat to force-abort")
+            if self.rank == 0:
+                print(f"signal {signum}: stopping after the current step "
+                      f"(checkpoint + clean exit); repeat to force-abort")
 
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
@@ -224,10 +255,23 @@ class Trainer:
                 pass
         return previous
 
+    _STOP_SYNC_EVERY = 10
+
     def _should_stop(self, step: int) -> bool:
-        """Whether a stop was requested. One process: the agreement of all
-        processes on the step to stop at waits for DDP (ROADMAP Queue 1
-        item 6)."""
+        """Whether to stop after `step`. One process: whether a stop was
+        requested. Several: the signal may reach some processes only, or
+        at different steps, and a process that stopped alone would leave
+        the others waiting in the next step's collectives; so the flags
+        are gathered every `_STOP_SYNC_EVERY` steps (not every step, which
+        would add a host round trip to each) and all stop at the same
+        step when any asked."""
+        if self.world == 1:
+            return self._stop_requested
+        if step % self._STOP_SYNC_EVERY != 0:
+            return False
+        flags = dist.all_gather_host(
+            np.asarray([1.0 if self._stop_requested else 0.0]))
+        self._stop_requested = bool(np.asarray(flags).any())
         return self._stop_requested
 
     @staticmethod
@@ -259,8 +303,9 @@ class Trainer:
         self.profile = False
 
     def fit(self) -> TrainState:
-        print(param_count_report(self.state.model))
-        if self.profile:
+        if self.rank == 0:
+            print(param_count_report(self.state.model))
+        if self.profile and self.rank == 0:
             self._start_profile()
         previous_handlers = self._install_preemption_handler()
         try:
@@ -271,7 +316,7 @@ class Trainer:
             self.logger.close()
 
     def _fit_loop(self) -> TrainState:
-        first_batch_logged = not self.diagnostics
+        first_batch_logged = not self.diagnostics or self.rank != 0
         step = self.state.step
         for epoch in range(self.start_epoch, self.max_epochs):
             t0 = time.time()
@@ -288,13 +333,15 @@ class Trainer:
                 if self._should_stop(step):
                     self._stop_profile()
                     self._save(epoch)  # resuming restarts this epoch
-                    print(f"preempted at step {step}: checkpoint written, "
-                          f"exiting cleanly")
+                    if self.rank == 0:
+                        print(f"preempted at step {step}: checkpoint "
+                              f"written, exiting cleanly")
                     return self.state
                 if step % self.log_every == 0:
                     metrics = {f"train/{k}_loss": float(v)
                                for k, v in losses.items()}
-                    metrics["train/images_per_sec"] = n_imgs / (time.time() - t0)
+                    metrics["train/images_per_sec"] = (
+                        n_imgs * self.world / (time.time() - t0))
                     metrics["train/lr"] = float(
                         self.lr_schedule(step // self.accumulate))
                     self.logger.log(metrics, step)
@@ -436,18 +483,23 @@ class Trainer:
         self.logger.log_image("diagnostics/backbone_features",
                               make_image_grid(tiles, ncols=2), step)
 
-    def _eval_batches(self) -> Iterator[Tuple[Dict[str, Any],
-                                              Dict[str, np.ndarray]]]:
-        """(batch, detections as numpy arrays) for each validation batch,
-        one batch deep: the next batch's images go up (pinned) and its
-        forward and decode are queued before the host waits, on an event,
-        for this batch's copies to the host. Fills `val_stats`."""
+    def _eval_batches(self, keep: Optional[Callable[[int, Dict[str, Any]],
+                                                    bool]] = None
+                      ) -> Iterator[Tuple[Dict[str, Any],
+                                          Dict[str, np.ndarray]]]:
+        """(batch, detections as numpy arrays) for each validation batch
+        (each that `keep(index, batch)` accepts), one batch deep: the next
+        batch's images go up (pinned) and its forward and decode are
+        queued before the host waits, on an event, for this batch's copies
+        to the host. Fills `val_stats`."""
         stats = {"batches": 0, "images": 0, "seconds": 0.0, "wait_s": 0.0}
         self.val_stats = stats
         t0 = time.perf_counter()
 
         def dispatched():
-            for batch in self.val_loader:
+            for i, batch in enumerate(self.val_loader):
+                if keep is not None and not keep(i, batch):
+                    continue
                 images = transfer.upload(batch["image"], self.device)
                 dets = self.eval_step(self.state, {"image": images})
                 yield (batch, *transfer.host_copies(dets))
@@ -470,10 +522,21 @@ class Trainer:
         """COCO validation: the 12 COCO metrics as val/<name>. Boxes reach
         the evaluator as the decode's f32 xyxy converted to xywh; targets
         are masked per image, with `iscrowd` and `area` when the batch has
-        them."""
+        them.
+
+        Over several processes each takes a contiguous block of the
+        loader's batches, and the predictions and targets are unioned in
+        rank order (`gather_object_lists`), which is the loader's order:
+        every process scores the whole set as one process would."""
         evaluator = CocoEvaluator(self.task.num_classes)
-        logged = not self.diagnostics
-        for batch, dets in self._eval_batches():
+        logged = not self.diagnostics or self.rank != 0
+        keep = None
+        if self.world > 1:
+            n_batches = len(self.val_loader)
+            lo = self.rank * n_batches // self.world
+            hi = (self.rank + 1) * n_batches // self.world
+            keep = lambda i, _batch: lo <= i < hi  # noqa: E731
+        for batch, dets in self._eval_batches(keep):
             if not logged:
                 self._log_prediction_diagnostic(batch, dets, self.state.step)
                 logged = True
@@ -487,6 +550,18 @@ class Trainer:
             targets = [{k: np.asarray(batch[k][i])[mask[i]] for k in keys}
                        for i in range(n)]
             evaluator.update(preds, targets)
+        if self.world > 1:
+            # the schemas shape the collective, so they are the same on
+            # every process: iscrowd defaults to 0 and area to the box's
+            # w * h (the evaluator's own fallback) where a set has none
+            for t in evaluator.targets:
+                t.setdefault("iscrowd", np.zeros(len(t["labels"]), np.int64))
+                t.setdefault("area", (np.asarray(t["boxes"])[:, 2]
+                                      * np.asarray(t["boxes"])[:, 3]))
+            evaluator.preds = dist.gather_object_lists(evaluator.preds,
+                                                       PRED_SCHEMA)
+            evaluator.targets = dist.gather_object_lists(evaluator.targets,
+                                                         TARGET_SCHEMA)
         return {f"val/{k}": v for k, v in evaluator.get_metrics().items()}
 
     def validate_tracking(self) -> Dict[str, float]:
@@ -495,23 +570,40 @@ class Trainer:
         the metrics of the sequences are combined as TrackEval combines
         them (eval/mot.py). Boxes are scaled to the input's size; only
         active tracks are reported. Per-sequence keys (val/seq<id>/...)
-        only when there are several sequences."""
+        only when there are several sequences.
+
+        Over several processes association runs a sequence at a time, so
+        whole sequences are dealt out (`sequence_id % processes`): every
+        process reads the whole set, forwards and tracks only batches that
+        hold its own sequences, and the per-sequence results are unioned,
+        so every process scores what one process would."""
         tracker = Tracker(model=None, **self.tracker_config)
         per_seq: Dict[int, Dict[str, list]] = {}
         current_seq = None
-        logged = not self.diagnostics
-        for batch, dets in self._eval_batches():
+        logged = not self.diagnostics or self.rank != 0
+
+        def seq_ids_of(batch):
+            n = batch["image"].shape[0]
+            return np.asarray(batch.get("sequence_id", np.zeros(n, np.int64)))
+
+        keep = None
+        if self.world > 1:
+            keep = lambda _i, batch: bool(  # noqa: E731
+                ((seq_ids_of(batch) % self.world) == self.rank).any())
+        for batch, dets in self._eval_batches(keep):
             if not logged:
                 self._log_prediction_diagnostic(batch, dets, self.state.step)
                 logged = True
             n = batch["image"].shape[0]
-            seq_ids = np.asarray(batch.get("sequence_id", np.zeros(n, np.int64)))
+            seq_ids = seq_ids_of(batch)
             in_h, in_w = batch["image"].shape[1:3]
             scale = np.array([in_w, in_h, in_w, in_h])
             mask = np.asarray(batch["mask"]).astype(bool)
             gt_boxes, gt_ids = np.asarray(batch["boxes"]), np.asarray(batch["ids"])
             for i in range(n):
                 sid = int(seq_ids[i])
+                if sid % self.world != self.rank:
+                    continue
                 if sid != current_seq:
                     tracker.reset()
                     current_seq = sid
@@ -527,8 +619,72 @@ class Trainer:
                 entry["pred_track_ids"].append([t.track_id for t in live])
                 entry["target_bboxes"].append(gt_boxes[i][mask[i]] / scale)
                 entry["target_track_ids"].append(gt_ids[i][mask[i]])
+        if self.world > 1:
+            per_seq = allgather_tracking_results(per_seq)
         metrics = evaluate_mot_tracking_sequences(
             {f"seq{k}": v for k, v in sorted(per_seq.items())})
         if len(per_seq) <= 1:
             metrics = {k: v for k, v in metrics.items() if "/" not in k}
         return {f"val/{k}": v for k, v in metrics.items()}
+
+
+def allgather_tracking_results(per_seq: Dict[int, Dict[str, list]],
+                               _allgather=None,
+                               _process_count: Optional[int] = None,
+                               ) -> Dict[int, Dict[str, list]]:
+    """Union the processes' tracking results (sequence -> per-frame ragged
+    box and id lists) through `gather_object_lists`. The processes hold
+    disjoint sequences; frames are keyed explicitly so that empty frames
+    survive. `_allgather` / `_process_count` can be injected for tests."""
+
+    def flatten(entry, box_key, id_key, sid):
+        boxes, ids, frames = [], [], []
+        for j, (bxs, tids) in enumerate(zip(entry[box_key], entry[id_key])):
+            b = np.asarray(bxs, np.float64).reshape(-1, 4)
+            boxes.append(b)
+            ids.append(np.asarray(tids, np.int64).reshape(-1))
+            frames.append(np.full(len(b), j, np.int64))
+        b = np.concatenate(boxes) if boxes else np.zeros((0, 4), np.float64)
+        i = np.concatenate(ids) if ids else np.zeros((0,), np.int64)
+        f = np.concatenate(frames) if frames else np.zeros((0,), np.int64)
+        return {"boxes": b, "ids": i, "frame": f,
+                "seq": np.full(len(b), sid, np.int64)}
+
+    meta_items, pred_items, tgt_items = [], [], []
+    for sid, entry in sorted(per_seq.items()):
+        meta_items.append(
+            {"info": np.asarray([[sid, len(entry["pred_bboxes"])]], np.int64)})
+        pred_items.append(flatten(entry, "pred_bboxes", "pred_track_ids", sid))
+        tgt_items.append(
+            flatten(entry, "target_bboxes", "target_track_ids", sid))
+
+    kw = {"_allgather": _allgather, "_process_count": _process_count}
+    meta = dist.gather_object_lists(meta_items, {"info": ((2,), np.int64)},
+                                    **kw)
+    schema = {"boxes": ((4,), np.float64), "ids": ((), np.int64),
+              "frame": ((), np.int64), "seq": ((), np.int64)}
+    preds = dist.gather_object_lists(pred_items, schema, **kw)
+    tgts = dist.gather_object_lists(tgt_items, schema, **kw)
+
+    out: Dict[int, Dict[str, list]] = {}
+    for m in meta:
+        sid, nf = int(m["info"][0, 0]), int(m["info"][0, 1])
+        out[sid] = {
+            "pred_bboxes": [np.zeros((0, 4)) for _ in range(nf)],
+            "pred_track_ids": [np.zeros((0,), np.int64) for _ in range(nf)],
+            "target_bboxes": [np.zeros((0, 4)) for _ in range(nf)],
+            "target_track_ids": [np.zeros((0,), np.int64)
+                                 for _ in range(nf)],
+        }
+    for items, box_key, id_key in ((preds, "pred_bboxes", "pred_track_ids"),
+                                   (tgts, "target_bboxes",
+                                    "target_track_ids")):
+        for it in items:
+            if not len(it["seq"]):
+                continue
+            entry = out[int(it["seq"][0])]
+            for j in np.unique(it["frame"]):
+                sel = it["frame"] == j
+                entry[box_key][int(j)] = it["boxes"][sel]
+                entry[id_key][int(j)] = it["ids"][sel]
+    return out

@@ -211,6 +211,22 @@ with its seconds (`phase_s`); any failure exits non-zero:
      a seeded Lightning-style checkpoint of the flagship through
      cli.convert_checkpoint, then build_centernet on its directory: the
      forward (f32, TF32 off) bitwise equal to `load_torch_checkpoint`'s;
+     then data parallelism and the ablation tool (`parallel_phases`):
+     `ddp_path`, configs/centernet.yaml from packs (128 train images at
+     b32, 128 val at b64), one epoch through `cli.train` with and without
+     --multihost (torchrun's variables set here: a process group of one
+     over NCCL), under deterministic cuDNN: weights, BatchNorm statistics
+     and val/* bitwise equal, one peak launch a validation batch, both
+     runs' step ms and the gradient all-reduce's ms in a group of one;
+     `ddp_two_ranks_one_card`, two gloo ranks on this card (device
+     tensors; `python3 chip_smoke.py --ddp-rank R DIR`) each taking 16
+     of a seeded b32 flagship batch for one SGD step, in f32 (TF32 off)
+     and bf16, against one process on all 32: f32 updates within
+     SGD_UPDATE_TOL, statistics within DDP_STATS_TOL in both, the bf16
+     update's distance printed beside bf16's own; `ablation_smoke`,
+     `cli.run_ablations --arm dcn_fast --epochs 1` on the 24-image smoke
+     set in this process: the result file's keys, --report's row, the
+     DCN sampler's and the peak kernel's launches;
   6. forward parity: the same f32 weights on the card (TF32 off) and on the
      CPU at batch 2, 512x512, for ResNet-34 FPN-256, for the DCN model
      on both DCN engines, and for centernet.yaml, helmet.yaml and the
@@ -2834,6 +2850,414 @@ def backbone_phases(card, reset_launches, read_launches, images):
     return peak_launches
 
 
+# ---- data parallelism (parallel/dist.py) and the ablation tool ------------
+
+# `ddp_path`: configs/centernet.yaml from packs (the cli_phases recipe:
+# DDP_TRAIN_IMAGES at CLI_TRAIN_BATCH with flips, CLI_VAL_IMAGES at
+# CLI_VAL_BATCH), one epoch through `cli.train` with and without
+# --multihost (a process group of one over NCCL)
+DDP_TRAIN_IMAGES = 128
+# `ddp_two_ranks_one_card`: the flagship (ResNet-34 FPN-256, heads 256 x 3,
+# 80 classes, TRAIN_RECIPE) at b32 SIZE^2, one SGD step of SGD_PARITY_LR
+# in f32 (TF32 off) and in bf16, as two gloo ranks of 16 images on the
+# one card against one process of 32. The f32 updates within
+# SGD_UPDATE_TOL (relative L2, the f32 bound of sgd_step_parity); the
+# BatchNorm running statistics' change within DDP_STATS_TOL of its own
+# size (relative L2) in both dtypes: the global statistics are sums of
+# f32 moments, the single process's cuDNN's, a rounding apart
+DDP_RANKS, DDP_BATCH = 2, 32
+DDP_STATS_TOL = 1e-2
+FLAGSHIP_TRAIN = dict(num_classes=80, backbone="resnet34", neck="FPN",
+                      neck_config={"out_channels": 256},
+                      head_config={"width": 256, "depth": 3}, **TRAIN_RECIPE)
+# `ablation_smoke`: cli.run_ablations' dcn_fast arm, one epoch on the
+# 24-image smoke set (CENTERNET_TPU_SMOKE_DATASET)
+ABLATION_ARM = "dcn_fast"
+ABLATION_KEYS = {"arm", "seed", "epochs", "final", "best_mAP", "dcn_audit"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(port):
+    """torchrun's variables for a group of one on this card."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def ddp_path(card, reset_launches, read_launches):
+    """`cli.train --multihost` in a process group of one over NCCL, held
+    bitwise against the same run without it (final parameters and
+    BatchNorm statistics, val/* metrics), with one peak launch a
+    validation batch; then the gradient all-reduce of this model timed in
+    a group of one. Returns the peak kernel's launches."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+    import yaml
+
+    from centernet_lightning_torch.cli import train as cli_train
+    from centernet_lightning_torch.parallel import dist
+    from centernet_lightning_torch.train import trainer as trainer_mod
+    from centernet_lightning_torch.train.checkpoint import (latest_checkpoint,
+                                                            load_checkpoint)
+    from centernet_lightning_torch.train.config import load_config
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    train_dir, val_dir = os.path.join(work, "train"), os.path.join(work, "val")
+    detection_pack(train_dir, DDP_TRAIN_IMAGES, seed=61)
+    detection_pack(val_dir, CLI_VAL_IMAGES, seed=62, eval_keys=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = load_config(os.path.join(here, "configs", CLI_YAML))
+    model = config["model"]
+
+    def packed(section, pack_dir, batch, **extra):
+        norm = [t for t in model[section].get("transforms", [])
+                if t.get("name") == "Normalize"]
+        return {"type": "packed", "data_dir": pack_dir, "batch_size": batch,
+                "transforms": norm, **extra}
+
+    model["train_data"] = packed("train_data", train_dir, CLI_TRAIN_BATCH,
+                                 flip_p=0.5)
+    model["val_data"] = packed("val_data", val_dir, CLI_VAL_BATCH)
+    config["trainer"].update(max_epochs=1, log_every_n_steps=1)
+    yaml_path = os.path.join(work, CLI_YAML)
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+
+    step_s = []
+    real_step = trainer_mod.make_train_step
+
+    def timed_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+        return run
+
+    def train(name, extra):
+        run_dir = os.path.join(work, name)
+        del step_s[:]
+        reset_launches()
+        t = time.perf_counter()
+        with patched(trainer_mod, "make_train_step", timed_step):
+            rc = cli_train.main(["--config", yaml_path, "--workdir", run_dir,
+                                 "--no-resume"] + extra)
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        state = load_checkpoint(latest_checkpoint(
+            os.path.join(run_dir, "checkpoints")))[0]["model"]
+        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        val = [{k: v for k, v in r.items() if k.startswith("val/")}
+               for r in rows if "val/mAP" in r]
+        return {"rc": rc, "wall_s": wall, "launches": launches, "state": state,
+                "val": val, "step_ms": float(np.median(step_s[1:])) * 1e3,
+                "steps": len(step_s),
+                "group_left_up": tdist.is_initialized()}
+
+    # the same run twice, bitwise: deterministic cuDNN and index backward
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = train("plain", [])
+        with torchrun_env(_free_port()):
+            multi = train("multihost", ["--multihost"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+    # the gradient all-reduce of this model, in a group of one over NCCL
+    n_params = sum(v.numel() for k, v in plain["state"].items()
+                   if v.is_floating_point() and "running" not in k)
+    grads = {"flat": torch.ones(n_params, device="cuda")}
+    with torchrun_env(_free_port()):
+        dist.init_from_env("cuda")
+        try:
+            world = dist.process_count()
+            tdist.all_reduce(grads["flat"])
+            allreduce_ms = cuda_ms(lambda: tdist.all_reduce(grads["flat"]), 20)
+            backend = tdist.get_backend()
+        finally:
+            tdist.destroy_process_group()
+    n_val = -(-CLI_VAL_IMAGES // CLI_VAL_BATCH)
+    mismatched = [k for k, v in plain["state"].items()
+                  if not torch.equal(v, multi["state"][k])]
+    checks = {
+        "rc": plain["rc"] == 0 and multi["rc"] == 0,
+        "params_and_bn_bitwise": not mismatched,
+        "val_equal": plain["val"] == multi["val"] and len(plain["val"]) == 1,
+        "peak_launches": multi["launches"]["peak_class_scores_cuda"] == n_val,
+        "group_torn_down": not multi["group_left_up"],
+        "nccl_world_of_one": backend == "nccl" and world == 1,
+    }
+    emit({"phase": "ddp_path", "config": CLI_YAML, "batch": CLI_TRAIN_BATCH,
+          "train_images": DDP_TRAIN_IMAGES, "steps": multi["steps"],
+          "plain_step_ms": plain["step_ms"], "multihost_step_ms": multi["step_ms"],
+          "allreduce_ms_per_step": allreduce_ms,
+          "allreduce_mb": n_params * 4 / 1e6, "backend": backend,
+          "plain_wall_s": plain["wall_s"], "multihost_wall_s": multi["wall_s"],
+          "launches": multi["launches"], "val": multi["val"],
+          "mismatched": mismatched[:5], "checks": checks, "nvidia_smi": card,
+          "phase_s": time.perf_counter() - t_phase})
+    shutil.rmtree(work, ignore_errors=True)
+    if not all(checks.values()):
+        raise AssertionError(f"ddp_path failed: {checks}")
+    torch.cuda.empty_cache()
+    return multi["launches"]["peak_class_scores_cuda"]
+
+
+DDP_DTYPES = (("bfloat16", "bfloat16"), ("float32", None))
+
+
+def ddp_one_step(task, model, start, batch, compute_dtype):
+    """One SGD step of SGD_PARITY_LR from `start` on `batch` (on the card,
+    TF32 off in f32): (the weights and statistics after it on the host,
+    the losses)."""
+    from centernet_lightning_torch.train import (TrainState, make_optimizer,
+                                                 make_train_step)
+
+    model.load_state_dict(start)
+    torch.backends.cudnn.allow_tf32 = compute_dtype is not None
+    torch.backends.cuda.matmul.allow_tf32 = compute_dtype is not None
+    state = TrainState(model=model, tx=make_optimizer(
+        model, optimizer="SGD", lr=SGD_PARITY_LR, weight_decay=1e-4,
+        warmup_epochs=0, max_epochs=1, steps_per_epoch=1))
+    step = make_train_step(task, compute_dtype=compute_dtype)
+    state, losses = step(state, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    return ({k: v.cpu() for k, v in model.state_dict().items()},
+            {k: float(v) for k, v in losses.items()})
+
+
+def ddp_rank_worker(rank: int, work: str) -> None:
+    """One of the `ddp_two_ranks_one_card` ranks: joins a gloo group (a
+    FileStore in `work`) on the one card, takes its DDP_BATCH / DDP_RANKS
+    rows of the seeded batch and one SGD step from the saved weights in
+    each of DDP_DTYPES, and saves its weights and losses."""
+    import torch.distributed as tdist
+
+    from centernet_lightning_torch.models.centernet import CenterNet
+
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(os.path.join(work, "store"), DDP_RANKS),
+        rank=rank, world_size=DDP_RANKS)
+    try:
+        task = CenterNet(**FLAGSHIP_TRAIN)
+        model = task.model.to("cuda", memory_format=torch.channels_last)
+        start = torch.load(os.path.join(work, "start.pt"))
+        batch = torch.load(os.path.join(work, "batch.pt"))
+        n = DDP_BATCH // DDP_RANKS
+        mine = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        out = {name: ddp_one_step(task, model, start, mine, dtype)
+               for name, dtype in DDP_DTYPES}
+        torch.save(out, os.path.join(work, f"rank_{rank}.pt"))
+    finally:
+        tdist.destroy_process_group()
+
+
+def ddp_two_ranks_one_card(card):
+    """Two gloo ranks on the one card (device tensors through gloo), each
+    one SGD step on half of a seeded b32 flagship batch, against one
+    process's step on the whole batch from the same weights, in f32 (TF32
+    off) and in bf16. In f32 the updates are held to SGD_UPDATE_TOL and
+    the statistics to DDP_STATS_TOL. In bf16 the statistics are held to
+    DDP_STATS_TOL; the update is printed, not held: the step's bf16
+    rounding alone moves this model's update by about half its size (one
+    process whose BatchNorm takes the same f32 moments as the two ranks,
+    without a collective, lands as far from cuDNN's step, and the two
+    ranks as far from it), so no bf16 bound near 2^-5 can tell a right
+    step from a wrong one; f32 can."""
+    import shutil
+    import tempfile
+    import types
+
+    from centernet_lightning_torch.models import layers
+    from centernet_lightning_torch.models.centernet import CenterNet
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    task = CenterNet(**FLAGSHIP_TRAIN)
+    task.init(torch.Generator().manual_seed(5))
+    perturb_bn(task.model, 6)
+    model = task.model.to("cuda", memory_format=torch.channels_last)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.save(start, os.path.join(work, "start.pt"))
+    batch = detection_batches(1, DDP_BATCH, SIZE, 80, "cpu", 71)[0]
+    torch.save(batch, os.path.join(work, "batch.pt"))
+
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r), work],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DDP_RANKS)]
+    outs = [p.communicate(timeout=600)[0] for p in procs]
+    ranks_s = time.perf_counter() - t
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"ddp_two_ranks_one_card: rank {r} exited "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank_{r}.pt"))
+             for r in range(DDP_RANKS)]
+
+    one = {name: ddp_one_step(task, model, start, batch, dtype)
+           for name, dtype in DDP_DTYPES}
+    # one process, BatchNorm through the global moments formula
+    moments = types.SimpleNamespace(process_count=lambda: DDP_RANKS,
+                                    all_reduce_sum=lambda x: x)
+    with patched(layers, "dist", moments):
+        one_moments = ddp_one_step(task, model, start, batch, "bfloat16")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    start = {k: v.cpu() for k, v in start.items()}
+    names = sorted(k for k, _ in model.named_parameters())
+    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
+
+    def rel_change(got, ref, keys):
+        diff = sum(((got[k] - ref[k]) ** 2).sum().item() for k in keys)
+        size = sum(((ref[k] - start[k]) ** 2).sum().item() for k in keys)
+        return (diff / max(size, 1e-30)) ** 0.5
+
+    two = {name: ranks[0][name] for name, _ in DDP_DTYPES}
+    gaps = {
+        "f32_update": rel_change(two["float32"][0], one["float32"][0], names),
+        "f32_stats": rel_change(two["float32"][0], one["float32"][0], stats),
+        "bf16_update_vs_moments": rel_change(two["bfloat16"][0],
+                                             one_moments[0], names),
+        "bf16_stats_vs_moments": rel_change(two["bfloat16"][0],
+                                            one_moments[0], stats),
+        "bf16_update_vs_cudnn": rel_change(two["bfloat16"][0],
+                                           one["bfloat16"][0], names),
+        "bf16_stats_vs_cudnn": rel_change(two["bfloat16"][0],
+                                          one["bfloat16"][0], stats),
+        "bf16_moments_update_vs_cudnn": rel_change(one_moments[0],
+                                                   one["bfloat16"][0], names),
+    }
+    loss_rel = {name: {k: abs(two[name][1][k] - v) / max(abs(v), 1e-30)
+                       for k, v in one[name][1].items()}
+                for name, _ in DDP_DTYPES}
+    checks = {
+        "ranks_equal": all(torch.equal(v, ranks[1][name][0][k])
+                           for name, _ in DDP_DTYPES
+                           for k, v in ranks[0][name][0].items()),
+        "f32_update": gaps["f32_update"] <= SGD_UPDATE_TOL,
+        "f32_stats": gaps["f32_stats"] <= DDP_STATS_TOL,
+        "bf16_stats": gaps["bf16_stats_vs_cudnn"] <= DDP_STATS_TOL,
+        "losses_finite": all(np.isfinite(v) for name, _ in DDP_DTYPES
+                             for v in two[name][1].values()),
+    }
+    emit({"phase": "ddp_two_ranks_one_card", "model": "resnet34_fpn256",
+          "ranks": DDP_RANKS, "backend": "gloo", "batch": DDP_BATCH,
+          "image_size": SIZE, "lr": SGD_PARITY_LR, "rel_l2": gaps,
+          "tolerance": {"update_rel_l2": SGD_UPDATE_TOL,
+                        "stats_rel_l2": DDP_STATS_TOL},
+          "losses_one_process": {n: one[n][1] for n, _ in DDP_DTYPES},
+          "losses_two_ranks": {n: two[n][1] for n, _ in DDP_DTYPES},
+          "loss_rel_diff": loss_rel, "ranks_wall_s": ranks_s,
+          "checks": checks, "nvidia_smi": card,
+          "phase_s": time.perf_counter() - t_phase})
+    shutil.rmtree(work, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    if not all(checks.values()):
+        raise AssertionError(f"ddp_two_ranks_one_card failed: {checks}")
+
+
+def ablation_smoke(card, reset_launches, read_launches):
+    """cli.run_ablations' ABLATION_ARM for one epoch on the smoke set, in
+    this process: the DCN sampling kernel and the peak kernel launch, the
+    result file holds the tool's keys and --report renders it. Needs
+    OpenCV (the arms read JPEG files); skipped, and said so, without it.
+    Returns the launches."""
+    import io
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        emit({"phase": "ablation_smoke", "skipped": "no OpenCV on this machine",
+              "phase_s": time.perf_counter() - t_phase})
+        return {}
+    from centernet_lightning_torch.cli import run_ablations
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_ablation_")
+    old = os.environ.get("CENTERNET_TPU_SMOKE_DATASET")
+    os.environ["CENTERNET_TPU_SMOKE_DATASET"] = "1"
+    try:
+        reset_launches()
+        t = time.perf_counter()
+        rc = run_ablations.main(["--out", out, "--arm", ABLATION_ARM,
+                                 "--epochs", "1"])
+        wall = time.perf_counter() - t
+        launches = read_launches()
+    finally:
+        if old is None:
+            os.environ.pop("CENTERNET_TPU_SMOKE_DATASET", None)
+        else:
+            os.environ["CENTERNET_TPU_SMOKE_DATASET"] = old
+    with open(os.path.join(out, f"{ABLATION_ARM}_s0.json")) as f:
+        result = json.load(f)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        run_ablations.report(out)
+    # the fit's one validation and the final one, each one batch of the
+    # 5 validation images; the sampler in every forward of the 3 DCN
+    # layers (the train step, both validations and the offset audit)
+    checks = {
+        "rc": rc == 0,
+        "result_keys": set(result) == ABLATION_KEYS,
+        "val_keys": set(result["final"]) == {f"val/{k}" for k in COCO_KEYS},
+        "audit_keys": set(result["dcn_audit"]) == {
+            "max_abs_offset", "engine_bound", "exact_by_construction"},
+        "peak_launches": launches["peak_class_scores_cuda"] == 2,
+        "sampler_launches": launches["dcn_sample_taps"] > 0,
+        "report_row": f"| {ABLATION_ARM} |" in report.getvalue(),
+    }
+    emit({"phase": "ablation_smoke", "arm": ABLATION_ARM, "epochs": 1,
+          "wall_s": wall, "launches": launches, "result": result,
+          "checks": checks, "nvidia_smi": card,
+          "phase_s": time.perf_counter() - t_phase})
+    shutil.rmtree(out, ignore_errors=True)
+    if not all(checks.values()):
+        raise AssertionError(f"ablation_smoke failed: {checks}")
+    return launches
+
+
+def parallel_phases(card, reset_launches, read_launches):
+    """`ddp_path`, `ddp_two_ranks_one_card` and `ablation_smoke`. Returns
+    the launches of the kernels on their paths."""
+    launches = collections.Counter()
+    launches["peak_class_scores_cuda"] += ddp_path(card, reset_launches,
+                                                   read_launches)
+    ddp_two_ranks_one_card(card)
+    launches.update(ablation_smoke(card, reset_launches, read_launches))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -3615,6 +4039,10 @@ def main() -> int:
     path_launches["peak_class_scores_cuda"] += serving_phases(
         card, reset_launches, read_launches)
 
+    # ---- 5h. data parallelism and the ablation tool ------------------------
+    for name, n in parallel_phases(card, reset_launches, read_launches).items():
+        path_launches[name] += n
+
     # ---- 6. forward parity on the card ---------------------------------
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -3750,4 +4178,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        ddp_rank_worker(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

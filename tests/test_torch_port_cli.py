@@ -459,5 +459,7 @@ def test_train_cli_help_subprocess():
         capture_output=True, text=True, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]
     for text in ("--config", "--workdir", "--max-epochs", "--profile",
-                 "--no-resume", "--device", "--multihost", "item 6"):
+                 "--no-resume", "--device", "--multihost", "LOCAL_RANK"):
         assert text in out.stdout, text
+    # --multihost is an option now, no longer a note that it waits
+    assert "[--multihost]" in out.stdout and "waits" not in out.stdout

@@ -48,6 +48,20 @@ def test_serving_modules_import_no_jax(module):
     assert not set(_imported_roots(path)) & FORBIDDEN
 
 
+PARALLEL_MODULES = ["parallel/__init__.py", "parallel/dist.py",
+                    "cli/run_ablations.py", "data/shapes.py"]
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_and_ablation_modules_import_no_jax(module):
+    """The data-parallel modules, the ablation tool and its shapes sets are
+    among the files checked above and import nothing of JAX, the JAX
+    package or tools/."""
+    path = os.path.join(ROOT, "centernet_lightning_torch", *module.split("/"))
+    assert os.path.normpath(path) in {os.path.normpath(f) for f in _python_files()}
+    assert not set(_imported_roots(path)) & (FORBIDDEN | {"tools"})
+
+
 def test_port_loads_without_opencv():
     """The card's machine has no OpenCV: the package, its data, eval and
     train subpackages and the trainer must import with cv2 hidden."""
@@ -61,7 +75,9 @@ def test_port_loads_without_opencv():
             "from centernet_lightning_torch.data import transforms, mosaic\n"
             "from centernet_lightning_torch import quantize\n"
             "from centernet_lightning_torch.cli import serve, export, "
-            "convert_checkpoint\n"
+            "convert_checkpoint, run_ablations\n"
+            "from centernet_lightning_torch import parallel\n"
+            "from centernet_lightning_torch.data import shapes\n"
             "assert sys.modules['cv2'] is None\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
