@@ -6,9 +6,12 @@ The serving program (uint8 NHWC images -> preprocess -> forward -> decode
 shape with `torch.export` and saved as a `.pt2` (`torch.export.save`),
 the port's counterpart of the JAX package's StableHLO and SavedModel
 artifacts. The peak stage is the custom op
-`torch.ops.centernet_lightning.peak_class_scores`, so a program exported
-on the card runs the hand-written kernel when it is loaded again; loading
-needs `import centernet_lightning_torch` first, which registers the op:
+`torch.ops.centernet_lightning.peak_class_scores`, and the bounded DCN
+engines are `centernet_lightning::dcn_sample_taps` and
+`centernet_lightning::dcn_fused_conv` (ops/_library.py), so a program
+exported on the card runs the hand-written kernels when it is loaded
+again; loading needs `import centernet_lightning_torch` first, which
+registers the ops:
 
     import centernet_lightning_torch, torch
     program = torch.export.load("model.pt2").module()
@@ -19,9 +22,9 @@ needs `import centernet_lightning_torch` first, which registers the op:
         [--batch-size 8] [--quantize-calibrate photos/] [--format onnx]
 
 `--quantize-calibrate DIR` exports the int8 program (its int8 weights
-and scales ride in the file). `--format onnx` needs the `onnx` package.
-Models with the bounded DCN engines (their kernels are ctypes calls, not
-registered ops) do not export yet.
+and scales ride in the file). `--format onnx` needs the `onnx` package,
+and refuses a model with a bounded DCN engine, naming its operator, which
+has no ONNX form.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import torch
 from torch import nn
 
 __all__ = ["ServingProgram", "make_serving_fn", "export_program",
-           "export_onnx", "main"]
+           "export_onnx", "dcn_operators", "main"]
 
 
 class ServingProgram(nn.Module):
@@ -71,6 +74,20 @@ class ServingProgram(nn.Module):
                       from_logits=True)
 
 
+def dcn_operators(model: nn.Module) -> list:
+    """The registered DCN operators the model's bounded DCN blocks call,
+    sorted (empty for a model without them)."""
+    from ..models.layers import DeformableConvBlock
+
+    names = {"centernet_lightning::" + ("dcn_fused_conv"
+                                        if m.sampler == "fused"
+                                        else "dcn_sample_taps")
+             for m in model.modules()
+             if isinstance(m, DeformableConvBlock)
+             and m.max_displacement is not None}
+    return sorted(names)
+
+
 def make_serving_fn(predictor, batch_size: int, height: int, width: int,
                     plain_decode: bool = False):
     """(ServingProgram, an example uint8 input on the predictor's device)."""
@@ -96,7 +113,14 @@ def export_onnx(predictor, output: str, batch_size: int = 1,
                 height: int = 512, width: int = 512, opset: int = 17):
     """ONNX, where the `onnx` package imports; otherwise exits non-zero
     naming it. The peak op has no ONNX form, so the graph decodes with the
-    plain ops (ops/decode.py)."""
+    plain ops (ops/decode.py), which compute the same; the DCN operators
+    have no plain form that is the same program, so a model with one
+    exits non-zero naming it."""
+    ops = dcn_operators(predictor.model)
+    if ops:
+        raise SystemExit(f"--format onnx cannot carry the operator(s) "
+                         f"{', '.join(ops)} of this model's bounded DCN "
+                         f"blocks; export --format pt2 instead")
     try:
         import onnx  # noqa: F401
     except ImportError:

@@ -151,13 +151,17 @@ class SameConv2d(nn.Conv2d):
                          padding=kernel_size // 2 if self.symmetric else 0,
                          groups=groups, bias=bias)
 
+    def pad_input(self, x: torch.Tensor) -> torch.Tensor:
+        """x padded as SAME needs it (x itself at stride 1, odd k)."""
+        if self.symmetric:
+            return x
+        k, s = self.kernel_size[0], self.stride[0]
+        top, bottom = same_pads(x.shape[2], k, s)
+        left, right = same_pads(x.shape[3], k, s)
+        return F.pad(x, (left, right, top, bottom))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.symmetric:
-            k, s = self.kernel_size[0], self.stride[0]
-            top, bottom = same_pads(x.shape[2], k, s)
-            left, right = same_pads(x.shape[3], k, s)
-            x = F.pad(x, (left, right, top, bottom))
-        return super().forward(x)
+        return super().forward(self.pad_input(x))
 
 
 class ConvNormAct(nn.Module):

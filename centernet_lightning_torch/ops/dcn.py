@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = ["TAPS", "dcn_planes", "tap_sample_reference", "fused_reference",
            "exact_taps", "check_sampling_inputs", "twin_vjp"]
@@ -180,8 +181,12 @@ def exact_taps(x: torch.Tensor, offsets: torch.Tensor,
     corners in f32, times the mask, rounded to x's dtype.
 
     x (N, H, W, C); offsets (N, H, W, 2k^2); mask (N, H, W, k^2) or None.
-    Returns (N, H, W, k^2, C) in x.dtype.
+    Returns (N, H, W, k^2, C) in x.dtype. A torch function mode sees the
+    call whole (parallel/mesh.py's height split gives it the whole map).
     """
+    args = (x, offsets) if mask is None else (x, offsets, mask)
+    if has_torch_function(args):
+        return handle_torch_function(exact_taps, args, x, offsets, mask, k)
     n, h, w, c = x.shape
     flat = x.reshape(n * h * w, c)
     off = offsets.reshape(n, h, w, k * k, 2).float()

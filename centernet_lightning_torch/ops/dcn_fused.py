@@ -3,7 +3,10 @@ its dispatch (port of ops/pallas_dcn.py:dcn_fused_conv).
 
 `dcn_fused_conv` launches `csrc/dcn_fused.cu` on a CUDA tensor and runs
 the plain twin `ops/dcn.py:fused_reference` on a CPU tensor; there is no
-other fallback. The kernel takes the sampling planes, not the TPU kernel's
+other fallback. While a program is traced (`torch.export`) it goes through
+the operator `torch.ops.centernet_lightning.dcn_fused_conv` instead, whose
+CUDA implementation makes the weight re-layout itself, so a loaded program
+needs no packing of its own (ops/_library.py). The kernel takes the sampling planes, not the TPU kernel's
 per-term weights (see the note in the source). In bf16 the kernel reads
 the weights as `pack_wgmma_kernel` lays them out, a re-layout made on
 every call; in f32 it reads them as given.
@@ -20,10 +23,12 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from . import dcn as dcn_ops
+from ._library import LIB, traced
 
-__all__ = ["dcn_fused_conv", "pack_wgmma_kernel", "check_launch", "kernel_info",
+__all__ = ["dcn_fused_conv", "dcn_fused_conv_op", "pack_wgmma_kernel", "check_launch", "kernel_info",
            "KERNEL_SOURCE", "REPLACES"]
 
 KERNEL_SOURCE = "centernet_lightning_torch/csrc/dcn_fused.cu"
@@ -120,8 +125,13 @@ def dcn_fused_conv(x: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor,
     dcn_planes` returns them for max displacement d; kernel (9, C, O) in
     x's dtype, tap-major. On a CUDA tensor this launches the kernel
     (counted in `dcn_fused_conv.launches`) or raises; on a CPU tensor it
-    returns `fused_reference`. Returns (N, H, W, O) in x's dtype.
+    returns `fused_reference`; a traced x goes through the operator. A
+    torch function mode sees the call whole (parallel/mesh.py's height
+    split gives it halo rows). Returns (N, H, W, O) in x's dtype.
     """
+    args = (x, a0, b0, fy, fx, wm, kernel)
+    if has_torch_function(args):
+        return handle_torch_function(dcn_fused_conv, args, *args, d)
     planes = (a0, b0, fy, fx, wm)
     dcn_ops.check_sampling_inputs(x, planes, d)
     n, h, w, c = x.shape
@@ -131,7 +141,9 @@ def dcn_fused_conv(x: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor,
     if kernel.dtype != x.dtype or kernel.device != x.device:
         raise TypeError(f"kernel is {kernel.dtype} on {kernel.device}, "
                         f"x is {x.dtype} on {x.device}")
-    return _FusedConv.apply(x, a0, b0, fy, fx, wm, kernel, d)
+    if traced(x):
+        return dcn_fused_conv_op(*args, d)
+    return _FusedConv.apply(*args, d)
 
 
 class _FusedConv(torch.autograd.Function):
@@ -167,11 +179,18 @@ def check_launch(x: torch.Tensor, planes, kernel: torch.Tensor) -> None:
 def _forward(x: torch.Tensor, planes, kernel: torch.Tensor,
              d: int) -> torch.Tensor:
     """The kernel's launch (CUDA) or the twin (CPU)."""
-    n, h, w, c = x.shape
     if x.device.type == "cpu":
         return dcn_ops.fused_reference(x, *planes, kernel, d)
     if x.device.type != "cuda":
         raise ValueError(f"no fused DCN kernel for device {x.device}")
+    return _launch(x, *planes, kernel, d)
+
+
+def _launch(x, a0, b0, fy, fx, wm, kernel, d):
+    """Launch csrc/dcn_fused.cu on x's current stream (in bf16, after the
+    weight re-layout kernel)."""
+    planes = (a0, b0, fy, fx, wm)
+    n, h, w, c = x.shape
     check_launch(x, planes, kernel)
     o = kernel.shape[2]
     out = torch.empty((n, h, w, o), dtype=x.dtype, device=x.device)
@@ -198,3 +217,16 @@ def _forward(x: torch.Tensor, planes, kernel: torch.Tensor,
 
 
 dcn_fused_conv.launches = 0
+
+
+def _meta(x, a0, b0, fy, fx, wm, kernel, d):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h, w, kernel.shape[2]))
+
+
+LIB.define("dcn_fused_conv(Tensor x, Tensor a0, Tensor b0, Tensor fy, "
+           "Tensor fx, Tensor wm, Tensor kernel, int d) -> Tensor")
+LIB.impl("dcn_fused_conv", dcn_ops.fused_reference, "CPU")
+LIB.impl("dcn_fused_conv", _launch, "CUDA")
+LIB.impl("dcn_fused_conv", _meta, "Meta")
+dcn_fused_conv_op = torch.ops.centernet_lightning.dcn_fused_conv

@@ -3,8 +3,11 @@ ops/pallas_dcn.py:dcn_sample_all_taps).
 
 `dcn_sample_taps` launches `csrc/dcn_sample.cu` on a CUDA tensor and runs
 the plain twin `ops/dcn.py:tap_sample_reference` on a CPU tensor; there is
-no other fallback. The per-tap matrix product that follows stays outside
-the kernel, as it stays outside Pallas in the JAX package.
+no other fallback. While a program is traced (`torch.export`) it goes
+through the operator `torch.ops.centernet_lightning.dcn_sample_taps`
+instead, which dispatches to the same two (ops/_library.py). The per-tap
+matrix product that follows stays outside the kernel, as it stays outside
+Pallas in the JAX package.
 
 It is differentiable in x, fy, fx and wm (not in the integer floors): the
 backward recomputes through the twin on either device, as the JAX
@@ -17,10 +20,13 @@ import ctypes
 import functools
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 from . import dcn as dcn_ops
+from ._library import LIB, traced
 
-__all__ = ["dcn_sample_taps", "KERNEL_SOURCE", "REPLACES"]
+__all__ = ["dcn_sample_taps", "dcn_sample_taps_op", "KERNEL_SOURCE",
+           "REPLACES"]
 
 KERNEL_SOURCE = "centernet_lightning_torch/csrc/dcn_sample.cu"
 REPLACES = "centernet_lightning_tpu/ops/pallas_dcn.py:181"
@@ -44,11 +50,18 @@ def dcn_sample_taps(x: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor,
     x (N, H, W, C) float32 or bfloat16; the planes as `ops/dcn.py:
     dcn_planes` returns them for max displacement d. On a CUDA tensor this
     launches the kernel (counted in `dcn_sample_taps.launches`) or raises;
-    on a CPU tensor it returns `tap_sample_reference`. Returns
+    on a CPU tensor it returns `tap_sample_reference`; a traced x goes
+    through the operator. A torch function mode sees the call whole
+    (parallel/mesh.py's height split gives it halo rows). Returns
     (N, H, W, 9, C) in x's dtype.
     """
-    dcn_ops.check_sampling_inputs(x, (a0, b0, fy, fx, wm), d)
-    return _SampleTaps.apply(x, a0, b0, fy, fx, wm, d)
+    args = (x, a0, b0, fy, fx, wm)
+    if has_torch_function(args):
+        return handle_torch_function(dcn_sample_taps, args, *args, d)
+    dcn_ops.check_sampling_inputs(x, args[1:], d)
+    if traced(x):
+        return dcn_sample_taps_op(*args, d)
+    return _SampleTaps.apply(*args, d)
 
 
 class _SampleTaps(torch.autograd.Function):
@@ -75,6 +88,12 @@ def _forward(x: torch.Tensor, planes, d: int) -> torch.Tensor:
         return dcn_ops.tap_sample_reference(x, *planes, d)
     if x.device.type != "cuda":
         raise ValueError(f"no DCN sampling kernel for device {x.device}")
+    return _launch(x, *planes, d)
+
+
+def _launch(x, a0, b0, fy, fx, wm, d):
+    """Launch csrc/dcn_sample.cu on x's current stream."""
+    planes = (a0, b0, fy, fx, wm)
     if not (x.is_contiguous() and all(p.is_contiguous() for p in planes)):
         raise ValueError("x and the planes must be contiguous")
     n, h, w, c = x.shape
@@ -94,3 +113,16 @@ def _forward(x: torch.Tensor, planes, d: int) -> torch.Tensor:
 
 
 dcn_sample_taps.launches = 0
+
+
+def _meta(x, a0, b0, fy, fx, wm, d):
+    n, h, w, c = x.shape
+    return x.new_empty((n, h, w, len(dcn_ops.TAPS), c))
+
+
+LIB.define("dcn_sample_taps(Tensor x, Tensor a0, Tensor b0, Tensor fy, "
+           "Tensor fx, Tensor wm, int d) -> Tensor")
+LIB.impl("dcn_sample_taps", dcn_ops.tap_sample_reference, "CPU")
+LIB.impl("dcn_sample_taps", _launch, "CUDA")
+LIB.impl("dcn_sample_taps", _meta, "Meta")
+dcn_sample_taps_op = torch.ops.centernet_lightning.dcn_sample_taps

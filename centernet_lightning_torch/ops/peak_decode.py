@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import decode as decode_ops
+from ._library import LIB, traced
 
 __all__ = ["peak_class_scores_cuda", "peak_class_scores_op",
            "peak_class_scores_reference",
@@ -199,9 +200,8 @@ def peak_class_scores_cuda(heatmap: torch.Tensor, from_logits: bool = False):
         raise TypeError(f"heatmap must be float32 or bfloat16, got {heatmap.dtype}")
     if heatmap.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no peak kernel for device {heatmap.device}")
-    if type(heatmap) is not torch.Tensor or torch.compiler.is_compiling():
-        # traced: the operator, on the map detached (the kernel has no
-        # backward); eager calls skip the dispatcher's hop
+    if traced(heatmap):
+        # the operator, on the map detached (the kernel has no backward)
         return peak_class_scores_op(heatmap.detach(), from_logits)
     if heatmap.device.type == "cpu":
         return peak_class_scores_reference(heatmap, from_logits=from_logits)
@@ -209,13 +209,8 @@ def peak_class_scores_cuda(heatmap: torch.Tensor, from_logits: bool = False):
 
 
 # The peak stage as an operator that `torch.export` keeps in a graph
-# (loading a saved program needs `import centernet_lightning_torch`, which
-# registers it): the plain twin on the CPU, the kernel on CUDA, shapes on
-# Meta (what tracing runs). `torch.library.custom_op` would import torch's
-# tracing stack (some 800 modules) at the first call, and the larger heap
-# slowed the host-bound tracking loop's garbage collection.
-_LIB = torch.library.Library("centernet_lightning", "DEF")
-_LIB.define("peak_class_scores(Tensor heatmap, bool from_logits) -> (Tensor, Tensor)")
+# (ops/_library.py).
+LIB.define("peak_class_scores(Tensor heatmap, bool from_logits) -> (Tensor, Tensor)")
 
 
 def _peak_meta(heatmap, from_logits):
@@ -250,9 +245,9 @@ def _peak_launch(heatmap, from_logits):
 
 
 peak_class_scores_cuda.launches = 0
-_LIB.impl("peak_class_scores", peak_class_scores_reference, "CPU")
-_LIB.impl("peak_class_scores", _peak_launch, "CUDA")
-_LIB.impl("peak_class_scores", _peak_meta, "Meta")
+LIB.impl("peak_class_scores", peak_class_scores_reference, "CPU")
+LIB.impl("peak_class_scores", _peak_launch, "CUDA")
+LIB.impl("peak_class_scores", _peak_meta, "Meta")
 peak_class_scores_op = torch.ops.centernet_lightning.peak_class_scores
 
 

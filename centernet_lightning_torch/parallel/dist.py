@@ -19,13 +19,20 @@ back together:
 
 With one process (no process group, or a group of one) every helper
 returns its input as it is, so a single process computes exactly what it
-computed before. The JAX package's `model` axis (`create_mesh(n_model>1)`,
-`shard_params(model_parallel=True)`, `spatial_sharding`) has no
-counterpart here yet.
+computed before.
+
+Every collective takes a `group`. Left out, it is the data group of the
+(data, model) grid whose step runs on this thread (`data_parallel`, which
+parallel/mesh.py's train step enters), else every process: on a 2-D grid
+the gradient mean, the losses' counts and BatchNorm's statistics then run
+over the data group alone, whose ranks hold different images, and the
+ranks of one model group, which hold the same images, stay equal.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -36,21 +43,51 @@ __all__ = ["init_from_env", "process_index", "process_count",
            "process_local_batch_size", "barrier", "broadcast_module",
            "mean_gradients", "mean_losses", "global_normalizer",
            "all_reduce_sum", "gather_rows", "all_gather_host",
-           "gather_object_lists"]
+           "gather_object_lists", "data_parallel"]
+
+
+class _Scope(threading.local):
+    group = None
+
+
+_SCOPE = _Scope()
+
+
+@contextlib.contextmanager
+def data_parallel(group):
+    """Run the block with `group` as the collectives' default group on this
+    thread (None: every process)."""
+    saved, _SCOPE.group = _SCOPE.group, group
+    try:
+        yield
+    finally:
+        _SCOPE.group = saved
+
+
+def _current(group=None):
+    """`group`, else the thread's data group (None: every process)."""
+    return group if group is not None else _SCOPE.group
+
+
+def _explicit(group=None):
+    """`_current(group)`, with every process spelled out as the
+    default group (torch.distributed.nn's collectives take no None)."""
+    group = _current(group)
+    return dist.group.WORLD if group is None else group
 
 
 def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def process_count() -> int:
-    """The number of processes in the default group (1 without one)."""
-    return dist.get_world_size() if _initialized() else 1
+def process_count(group=None) -> int:
+    """The number of processes in `group` (1 without a process group)."""
+    return dist.get_world_size(_current(group)) if _initialized() else 1
 
 
-def process_index() -> int:
-    """This process's rank (0 without a group)."""
-    return dist.get_rank() if _initialized() else 0
+def process_index(group=None) -> int:
+    """This process's rank in `group` (0 without a process group)."""
+    return dist.get_rank(_current(group)) if _initialized() else 0
 
 
 def process_local_batch_size(global_batch_size: int) -> int:
@@ -95,23 +132,26 @@ def barrier() -> None:
 
 
 @torch.no_grad()
-def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
-    """Rank `src`'s parameters and buffers, in place, on every rank."""
-    if process_count() == 1:
+def broadcast_module(module: torch.nn.Module, src: int = 0,
+                     group=None) -> None:
+    """Rank `src`'s (a global rank) parameters and buffers, in place, on
+    every rank of `group`."""
+    if process_count(group) == 1:
         return
     for t in list(module.parameters()) + list(module.buffers()):
-        dist.broadcast(t.data, src)
+        dist.broadcast(t.data, src, group=_current(group))
 
 
 @torch.no_grad()
-def mean_gradients(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The gradients averaged over the processes: one all-reduce of one
-    flat buffer, then views of it under the same names."""
-    world = process_count()
+def mean_gradients(grads: Dict[str, torch.Tensor],
+                   group=None) -> Dict[str, torch.Tensor]:
+    """The gradients averaged over the processes of `group`: one
+    all-reduce of one flat buffer, then views of it under the same names."""
+    world = process_count(group)
     if world == 1:
         return grads
     flat = torch.cat([g.reshape(-1) for g in grads.values()])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=_current(group))
     flat.div_(world)
     out, start = {}, 0
     for k, g in grads.items():
@@ -121,27 +161,28 @@ def mean_gradients(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def mean_losses(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The scalar losses averaged over the processes, which with
-    `global_normalizer` is the global batch's loss (one all-reduce)."""
-    world = process_count()
+def mean_losses(losses: Dict[str, torch.Tensor],
+                group=None) -> Dict[str, torch.Tensor]:
+    """The scalar losses averaged over the processes of `group`, which
+    with `global_normalizer` is the global batch's loss (one all-reduce)."""
+    world = process_count(group)
     if world == 1:
         return losses
     flat = torch.stack([v.detach().float() for v in losses.values()])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=_current(group))
     flat.div_(world)
     return dict(zip(losses, flat.unbind()))
 
 
 def global_normalizer(count: torch.Tensor, floor: Optional[float] = None,
-                      eps: float = 0.0) -> torch.Tensor:
+                      eps: float = 0.0, group=None) -> torch.Tensor:
     """What a per-process loss sum divides by: the count over the global
-    batch (summed over the processes, no gradient), at least `floor`, plus
-    `eps`, over the number of processes. The processes' mean of
-    sum / normalizer is then the global sum over the global count, and
+    batch (summed over the processes of `group`, no gradient), at least
+    `floor`, plus `eps`, over the number of processes. The processes' mean
+    of sum / normalizer is then the global sum over the global count, and
     so is their mean gradient. One process: max(floor, count) + eps."""
-    world = process_count()
-    total = count if world == 1 else _all_reduce_detached(count)
+    world = process_count(group)
+    total = count if world == 1 else _all_reduce_detached(count, group)
     if floor is not None:
         total = torch.clamp(total, min=floor)
     if eps:
@@ -150,32 +191,32 @@ def global_normalizer(count: torch.Tensor, floor: Optional[float] = None,
 
 
 @torch.no_grad()
-def _all_reduce_detached(x: torch.Tensor) -> torch.Tensor:
+def _all_reduce_detached(x: torch.Tensor, group=None) -> torch.Tensor:
     x = x.detach().clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=_current(group))
     return x
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """`x` summed over the processes, differentiably: the cotangent is
-    summed the same way (identity for one process)."""
-    if process_count() == 1:
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x` summed over the processes of `group`, differentiably: the
+    cotangent is summed the same way (identity for one process)."""
+    if process_count(group) == 1:
         return x
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(x)
+    return all_reduce(x, group=_explicit(group))
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every process's rows of `x`, concatenated in rank order: the global
-    batch's rows. Differentiable (the backward sums every process's
-    cotangent of this rank's rows); the shapes must agree across
-    processes (the collate pads to a fixed `max_boxes`)."""
-    if process_count() == 1:
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every process's rows of `x`, concatenated in rank order within
+    `group`: the global batch's rows. Differentiable (the backward sums
+    every process's cotangent of this rank's rows); the shapes must agree
+    across processes (the collate pads to a fixed `max_boxes`)."""
+    if process_count(group) == 1:
         return x
     from torch.distributed.nn.functional import all_gather
 
-    return torch.cat(all_gather(x))
+    return torch.cat(all_gather(x, group=_explicit(group)))
 
 
 def all_gather_host(tree):

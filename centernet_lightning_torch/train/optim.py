@@ -15,7 +15,10 @@ rules to the model's parameters, named as in its `state_dict`:
   - `gradient_clip_val`: optax `clip_by_global_norm` over every gradient,
     before everything else;
   - over several processes the gradients are first averaged over them
-    (`parallel.dist.mean_gradients`, one flat all-reduce an update);
+    (`parallel.dist.mean_gradients`, one flat all-reduce an update, over
+    the data group on a 2-D grid); the clip's norm counts a parameter that
+    parallel/mesh.py splits over a model group once, summing its slices'
+    squares over that group;
   - schedules: LinearLR warmup then cosine, or OneCycleLR with momentum
     (Adam's beta1) cycling, evaluated in float32 as the JAX package does;
   - `MultiSteps`: optax.MultiSteps, the mean of k micro-batch gradients
@@ -263,7 +266,7 @@ class Optimizer:
         # comes before the clip, once an update (after MultiSteps' mean)
         grads = dist.mean_gradients(grads)
         if self.clip:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            g_norm = torch.sqrt(_squared_norm(params, grads))
             keep = g_norm < self.clip
             grads = {k: torch.where(keep, g, (g / g_norm) * self.clip)
                      for k, g in grads.items()}
@@ -319,6 +322,21 @@ def _bias_correction(decay: float, count: int) -> float:
     difference keeps few bits, so a float64 value would differ from
     optax's by up to 1e-5 of the step."""
     return float(_F32(1) - _F32(decay) ** _F32(count))
+
+
+def _squared_norm(params: Dict[str, torch.Tensor],
+                  grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The global gradient's squared L2 norm. A parameter held as one
+    slice a rank of a model group (its `model_group`, parallel/mesh.py)
+    adds its slices' squares summed over that group."""
+    split = {k: params[k].model_group for k in grads
+             if getattr(params[k], "model_group", None) is not None}
+    if not split:
+        return sum(torch.sum(g * g) for g in grads.values())
+    total = sum(torch.sum(g * g) for k, g in grads.items() if k not in split)
+    group = next(iter(split.values()))
+    return total + dist.all_reduce_sum(
+        sum(torch.sum(grads[k] * grads[k]) for k in split), group=group)
 
 
 class MultiSteps:

@@ -17,7 +17,11 @@ slice of the global batch: BatchNorm's statistics and the losses' counts
 are the global batch's, the optimizer averages the gradients over the
 processes before it clips, and the losses returned are the global ones.
 The model is not wrapped in DistributedDataParallel, whose hooks would
-not see the gradients of the bf16 `functional_call` copies.
+not see the gradients of the bf16 `functional_call` copies. On a
+(data, model) grid (`make_train_step(mesh=...)`, parallel/mesh.py) the
+step's collectives run over the data group: each rank takes its data
+rank's rows, and the ranks of a model group, with the same rows, stay
+equal (their column-parallel convolutions hold slices of the weights).
 """
 from __future__ import annotations
 
@@ -94,7 +98,8 @@ def _mean_std(task):
 
 
 def make_train_step(task, compute_dtype: Optional[Any] = None,
-                    ema_decay: float = 0.0, ema_every: int = 1) -> Callable:
+                    ema_decay: float = 0.0, ema_every: int = 1,
+                    mesh=None) -> Callable:
     """step_fn(state, batch) -> (state, losses): one training step.
 
     batch: {image (N, H, W, 3) uint8 or float, boxes, labels, mask, and
@@ -104,8 +109,10 @@ def make_train_step(task, compute_dtype: Optional[Any] = None,
     `state.ema_params` with the decay min(ema_decay, (1+t)/(10+t)), t the
     number of optimizer updates; under accumulation (ema_every = k) it
     moves on every k-th step only. Losses come back as f32 scalars, still
-    on the device.
+    on the device. `mesh` (parallel/mesh.py) takes the step on a
+    (data, model) grid: batch is the data rank's rows.
     """
+    data_group = mesh.data_group if mesh is not None else None
     dtype = _DTYPES[str(compute_dtype)] if compute_dtype else None
     mean, std = _mean_std(task)
 
@@ -116,6 +123,10 @@ def make_train_step(task, compute_dtype: Optional[Any] = None,
         return images.to(dtype) if dtype is not None else images
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with dist.data_parallel(data_group):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model.train()
         params = state.params()
         call = _caller(model, None if dtype is None else

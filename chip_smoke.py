@@ -227,6 +227,22 @@ with its seconds (`phase_s`); any failure exits non-zero:
      `cli.run_ablations --arm dcn_fast --epochs 1` on the 24-image smoke
      set in this process: the result file's keys, --report's row, the
      DCN sampler's and the peak kernel's launches;
+     then DCN export, the model axis and the profile tools
+     (`mesh_phases`): `dcn_export_path`, the DCN model on `dcn_fast` and
+     `dcn_fused_d1` exported at b1 and b8 (bf16), loaded and run: each
+     DCN layer an operator node, detections bitwise equal to the
+     predictor's, a loaded call launching the DCN kernel once a layer
+     and the peak kernel once; `model_axis_path`, the flagship at b8 on
+     (1, 2) and (1, 4) grids of gloo ranks on this card (`python3
+     chip_smoke.py --mesh-rank R WORLD DIR`; their times are host
+     copies, no interconnect figure): tensor-parallel and height-split
+     heads within 1e-4 of max |head| of one process's (f32, TF32 off;
+     bf16 printed), no map gathered whole at 512² / 4, the gathered
+     heads' top-k through the peak kernel the plain decode's, one peak
+     launch a batch, a (2, 2) grid's f32 SGD step within SGD_UPDATE_TOL
+     of one process's, and the grid's collectives in a group of one
+     over NCCL; `profile_tools`, cli.profile_serve (bf16, --quantize)
+     and cli.profile_train at small batches, their breakdowns printed;
   6. forward parity: the same f32 weights on the card (TF32 off) and on the
      CPU at batch 2, 512x512, for ResNet-34 FPN-256, for the DCN model
      on both DCN engines, and for centernet.yaml, helmet.yaml and the
@@ -394,32 +410,52 @@ def decode_vs_plain(pred, images, k=100):
     f32 as the fused decode widens an fp16 map: the peak maps must be
     bitwise equal and the top-k the same (check_same_detections).
     Returns {peak_maps_equal_plain, max_abs_logit, finite, heatmap_dtype}."""
-    from centernet_lightning_torch.ops import decode as decode_ops
-    from centernet_lightning_torch.ops import peak_decode
-
     with torch.inference_mode():
         outs = pred.model(pred.prepare_images(images))
         heat, box = outs["heatmap"], outs["box_2d"]
         heat_dtype = str(heat.dtype).replace("torch.", "")
         if heat.dtype not in (torch.float32, torch.bfloat16):
             heat = heat.float()
-        a = dict(zip(("flat", "labels_map"),
-                     peak_decode.peak_class_scores_cuda(heat, True)))
-        b = dict(zip(("flat", "labels_map"),
-                     decode_ops.peak_class_scores(heat.float(), from_logits=True)))
-        same = (torch.equal(a["flat"], b["flat"])
-                and torch.equal(a["labels_map"], b["labels_map"]))
-        for out in (a, b):
-            _, out["indices"], out["labels"] = decode_ops._topk(
-                out["flat"], out["labels_map"], k, True)
-            out["boxes"] = decode_ops.gather_and_decode_boxes(
-                box, out["indices"], stride=pred.task.stride)
-        check_same_detections(a, b)
+        same = maps_vs_plain(heat, box, pred.task.stride, k)
         return {"peak_maps_equal_plain": same,
                 "max_abs_logit": heat.float().abs().max().item(),
                 "finite": bool(torch.isfinite(heat).all()
                                and torch.isfinite(box).all()),
                 "heatmap_dtype": heat_dtype}
+
+
+def topk_of(flat, labels_map, box, stride, k=100):
+    """check_same_detections' form of the top k of a peak map (logits)."""
+    from centernet_lightning_torch.ops import decode as decode_ops
+
+    out = {"flat": flat, "labels_map": labels_map}
+    out["scores"], out["indices"], out["labels"] = decode_ops._topk(
+        flat, labels_map, k, True)
+    out["boxes"] = decode_ops.gather_and_decode_boxes(box, out["indices"],
+                                                      stride=stride)
+    return out
+
+
+def peak_topk(heat, box, stride, k=100):
+    """The top k of `heat` (logits) through the peak kernel."""
+    from centernet_lightning_torch.ops import peak_decode
+
+    return topk_of(*peak_decode.peak_class_scores_cuda(heat.contiguous(), True),
+                   box, stride, k)
+
+
+def maps_vs_plain(heat, box, stride, k=100):
+    """Top-k of `heat` (logits, f32 or bf16) through the peak kernel and
+    through the plain decode on the same maps: check_same_detections
+    holds them. Returns whether the peak maps are bitwise equal."""
+    from centernet_lightning_torch.ops import decode as decode_ops
+
+    a = peak_topk(heat, box, stride, k)
+    b = topk_of(*decode_ops.peak_class_scores(heat.float(), from_logits=True),
+                box, stride, k)
+    check_same_detections(a, b)
+    return (torch.equal(a["flat"], b["flat"])
+            and torch.equal(a["labels_map"], b["labels_map"]))
 
 
 def card_line() -> str:
@@ -3033,23 +3069,30 @@ def ddp_path(card, reset_launches, read_launches):
 DDP_DTYPES = (("bfloat16", "bfloat16"), ("float32", None))
 
 
-def ddp_one_step(task, model, start, batch, compute_dtype):
+def ddp_one_step(task, model, start, batch, compute_dtype, mesh=None):
     """One SGD step of SGD_PARITY_LR from `start` on `batch` (on the card,
     TF32 off in f32): (the weights and statistics after it on the host,
-    the losses)."""
+    the losses). With `mesh` (parallel/mesh.py) the step runs on that grid
+    with its wide convolutions split over `model`; `batch` is the global
+    batch and the weights come back whole."""
+    from centernet_lightning_torch.parallel import mesh as pm
     from centernet_lightning_torch.train import (TrainState, make_optimizer,
                                                  make_train_step)
 
     model.load_state_dict(start)
+    if mesh is not None:
+        pm.shard_params(model, mesh, model_parallel=True)
+        batch = pm.shard_batch(batch, mesh)
     torch.backends.cudnn.allow_tf32 = compute_dtype is not None
     torch.backends.cuda.matmul.allow_tf32 = compute_dtype is not None
     state = TrainState(model=model, tx=make_optimizer(
         model, optimizer="SGD", lr=SGD_PARITY_LR, weight_decay=1e-4,
         warmup_epochs=0, max_epochs=1, steps_per_epoch=1))
-    step = make_train_step(task, compute_dtype=compute_dtype)
+    step = make_train_step(task, compute_dtype=compute_dtype, mesh=mesh)
     state, losses = step(state, {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
-    return ({k: v.cpu() for k, v in model.state_dict().items()},
+    weights = model.state_dict() if mesh is None else pm.full_state_dict(model)
+    return ({k: v.cpu() for k, v in weights.items()},
             {k: float(v) for k, v in losses.items()})
 
 
@@ -3255,6 +3298,430 @@ def parallel_phases(card, reset_launches, read_launches):
                                                    read_launches)
     ddp_two_ranks_one_card(card)
     launches.update(ablation_smoke(card, reset_launches, read_launches))
+    return launches
+
+
+# ---- the model axis (parallel/mesh.py), DCN export, the profile tools ------
+
+MESH_BATCH = 8
+MESH_WORLDS = (2, 4)      # model ranks on the (1, n) grids; 4 also runs (2, 2)
+MESH_GRID = (2, 2)
+DCN_EXPORT_TYPES = ("dcn_fast", "dcn_fused_d1")
+
+
+def dcn_export_path(card, reset_launches, read_launches):
+    """`dcn_export_path`: the DCN main path (ResNet-18 FPN-128, its three
+    DCN merges on `dcn_fast` (the sampler, d = 2) or `dcn_fused_d1`, bf16,
+    512²) exported with cli/export.py at b1 and b8, saved, loaded and run
+    on the card: each DCN layer a `centernet_lightning::dcn_sample_taps`
+    or `::dcn_fused_conv` node and the peak op once in the graph,
+    detections bitwise equal to `predictor.detect`, and a loaded call
+    launching the DCN kernel once a DCN layer and the peak kernel once.
+    Returns the launches of the loaded calls."""
+    import shutil
+    import tempfile
+
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch.cli.export import export_program
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_dcn_export_")
+    gen = torch.Generator().manual_seed(43)
+    op_of = {"dcn_fast": ("dcn_sample_taps",
+                          "centernet_lightning.dcn_sample_taps.default"),
+             "dcn_fused_d1": ("dcn_fused_conv",
+                              "centernet_lightning.dcn_fused_conv.default")}
+    peak_op = "centernet_lightning.peak_class_scores.default"
+    rows, total = [], collections.Counter()
+    for conv_type in DCN_EXPORT_TYPES:
+        pred = build_centernet(dcn_config(conv_type), seed=0)
+        calib = torch.randint(0, 256, (2, SIZE, SIZE, 3), generator=gen,
+                              dtype=torch.uint8).cuda()
+        draw_offset_weights(pred.model, pred.prepare_images(calib),
+                            torch.Generator(device="cuda").manual_seed(44))
+        layers = len(dcn_blocks(pred.model))
+        counter, op = op_of[conv_type]
+        for b in EXPORT_BATCHES:
+            path = os.path.join(work, f"{conv_type}_b{b}.pt2")
+            t0 = time.perf_counter()
+            exported = export_program(pred, path, batch_size=b, height=SIZE,
+                                      width=SIZE)
+            export_s = time.perf_counter() - t0
+            targets = [str(n.target) for n in exported.graph.nodes
+                       if n.op == "call_function"]
+            del exported
+            t0 = time.perf_counter()
+            program = torch.export.load(path).module()
+            load_s = time.perf_counter() - t0
+            x = torch.randint(0, 256, (b, SIZE, SIZE, 3), generator=gen,
+                              dtype=torch.uint8).cuda()
+            with torch.inference_mode():
+                program(x)                                  # warm-up
+                reset_launches()
+                got = program(x)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                want = pred.detect(x)
+            rows.append({
+                "conv_type": conv_type, "batch": b, "dcn_layers": layers,
+                "bytes": os.path.getsize(path), "export_s": export_s,
+                "load_s": load_s, "dcn_op": op,
+                "dcn_op_nodes": targets.count(op),
+                "peak_op_nodes": targets.count(peak_op),
+                "launches": launches,
+                "bitwise_equal": {k: torch.equal(got[k], want[k]) for k in want}})
+            total.update(launches)
+            del program, got, want, x
+        del pred
+    shutil.rmtree(work, ignore_errors=True)
+    counter_of = {op: c for c, op in op_of.values()}
+    checks = {
+        "dcn_op_a_layer": all(r["dcn_op_nodes"] == r["dcn_layers"] == len(DCN_LAYERS)
+                              for r in rows),
+        "peak_op_once": all(r["peak_op_nodes"] == 1 for r in rows),
+        "dcn_launches_a_layer": all(
+            r["launches"][counter_of[r["dcn_op"]]] == r["dcn_layers"] for r in rows),
+        "one_peak_launch_a_call": all(
+            r["launches"]["peak_class_scores_cuda"] == 1 for r in rows),
+        "both_ops": {r["dcn_op"] for r in rows} == set(counter_of),
+        "equal_predictor": all(all(r["bitwise_equal"].values()) for r in rows)}
+    emit({"phase": "dcn_export_path", "card": card, "image_size": SIZE,
+          "programs": rows, "checks": checks,
+          "phase_s": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"dcn_export_path checks failed: {checks}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def head_gaps_to(heads, ref):
+    """max |heads - ref| of each head map (ref on the host), beside
+    FORWARD_RTOL x max(1, max |ref|)."""
+    out = {}
+    for key in ("heatmap", "box_2d"):
+        r = ref[key].cuda().float()
+        diff = (heads[key].float() - r).abs().max().item()
+        scale = max(1.0, r.abs().max().item())
+        out[key] = {"max_abs_diff": diff, "max_abs_ref": scale,
+                    "tolerance": FORWARD_RTOL * scale}
+    return out
+
+
+def mesh_rank_worker(rank: int, world: int, work: str) -> None:
+    """One rank of `model_axis_path` (`python3 chip_smoke.py --mesh-rank R
+    WORLD DIR`): a gloo group of WORLD ranks on the one card (device
+    tensors), a (1, WORLD) grid: the flagship's tensor-parallel forward
+    and its height split (heads gathered, decoded through the peak kernel)
+    in f32 (TF32 off) and bf16, each against one process's heads, the
+    detections against the top k of one process's heads through the peak
+    kernel (check_same_detections, f32; bf16's are printed); with 4
+    ranks also one f32 SGD step on a (2, 2) grid with the wide
+    convolutions split. Saves its readings."""
+    import torch.distributed as tdist
+
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch.models.centernet import CenterNet
+    from centernet_lightning_torch.ops import peak_decode
+    from centernet_lightning_torch.parallel import mesh as pm
+
+    torch.cuda.set_device(0)
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(os.path.join(work, f"store_{world}"), world),
+        rank=rank, world_size=world)
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        start = torch.load(os.path.join(work, "start.pt"))
+        refs = torch.load(os.path.join(work, "ref.pt"))
+        images = torch.load(os.path.join(work, "images.pt")).cuda()
+        mesh = pm.create_mesh(1, world)
+        f32_cfg = {"model": dict(FLAGSHIP_CFG)}
+        out = {"tp": {}, "band": {}}
+
+        def model_in(dtype):
+            pred = build_centernet(f32_cfg, seed=0)
+            pred.model.load_state_dict(start)
+            pred.model.to(dtype).eval()
+            return pred, pred.prepare_images(images).to(dtype)
+
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            pred, x = model_in(dtype)
+            split = pm.shard_params(pred.model, mesh, model_parallel=True)
+            with torch.inference_mode():
+                pred.model(x)                               # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                heads = pred.model(x)
+                torch.cuda.synchronize()
+            out["tp"][name] = {"split_weights": len(split),
+                               "forward_s_gloo_host": time.perf_counter() - t0,
+                               **head_gaps_to(heads, refs[name])}
+            del pred, heads
+            pred, x = model_in(dtype)
+            band = pm.split_rows(x, mesh)
+            with torch.inference_mode():
+                before = pm.spatial_forward.gathers
+                heads = pm.gather_bands(pm.spatial_forward(pred.model, band, mesh),
+                                        mesh)
+                gathers = pm.spatial_forward.gathers - before
+                peak_decode.peak_class_scores_cuda.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dets = pm.spatial_detect(pred.task, pred.model, band, mesh)
+                torch.cuda.synchronize()
+                detect_s = time.perf_counter() - t0
+                launches = peak_decode.peak_class_scores_cuda.launches
+                stride = pred.task.stride
+                got = peak_topk(heads["heatmap"], heads["box_2d"], stride)
+                one = peak_topk(refs[name]["heatmap"].cuda(),
+                                refs[name]["box_2d"].cuda(), stride)
+                if dtype == torch.float32:
+                    check_same_detections(got, one)
+                same = maps_vs_plain(heads["heatmap"], heads["box_2d"], stride)
+            out["band"][name] = {
+                "gathers": gathers, "peak_launches": launches,
+                "detect_s_gloo_host": detect_s,
+                "detections_are_topk_of_gathered": all(
+                    torch.equal(dets[k], got[k])
+                    for k in ("scores", "labels", "boxes")),
+                "topk_logits_equal_one_process": torch.equal(
+                    torch.gather(got["flat"], 1, got["indices"].long()),
+                    torch.gather(one["flat"], 1, one["indices"].long())),
+                "peak_maps_equal_plain": same,
+                "top_scores": dets["scores"][:, :5].float().cpu().tolist(),
+                **head_gaps_to(heads, refs[name])}
+            if dtype == torch.float32:     # check_same_detections held above
+                out["band"][name]["same_detections_as_one_process"] = True
+            del pred, heads, dets, got, one
+            torch.cuda.empty_cache()
+        if world == MESH_GRID[0] * MESH_GRID[1]:
+            grid = pm.create_mesh(*MESH_GRID)
+            task = CenterNet(**FLAGSHIP_TRAIN)
+            model = task.model.to("cuda", memory_format=torch.channels_last)
+            t0 = time.perf_counter()
+            weights, losses = ddp_one_step(
+                task, model, torch.load(os.path.join(work, "start_step.pt")),
+                torch.load(os.path.join(work, "batch.pt")), None, mesh=grid)
+            out["grid_step"] = {"losses": losses,
+                                "step_s_gloo_host": time.perf_counter() - t0}
+            if rank == 0:
+                torch.save(weights, os.path.join(work, "grid_weights.pt"))
+        torch.save(out, os.path.join(work, f"rank_{world}_{rank}.pt"))
+    finally:
+        tdist.destroy_process_group()
+
+
+def model_axis_path(card):
+    """`model_axis_path`: the flagship (ResNet-34 FPN-256, 80 classes, full
+    width, 512², b8) on (1, 2) and (1, 4) grids of gloo ranks on this card
+    (the ranks' collectives run through the host, so their times are no
+    interconnect figures), and a (2, 2) grid step. Held, f32 with TF32
+    off: the tensor-parallel and the height-split heads within
+    FORWARD_RTOL of max |head| of one process's, no map gathered whole at
+    512² / 4, the detections of the gathered heads those of one
+    process's heads and the gathered heads' top-k through the peak
+    kernel the plain decode's (check_same_detections), one peak launch a
+    batch on every
+    rank, and the (2, 2) step's update within SGD_UPDATE_TOL (relative
+    L2) of one process's step on the global batch, its statistics within
+    DDP_STATS_TOL. bf16's distances are printed, not held. Then the
+    grid's collectives in a group of one over NCCL. Returns the peak
+    launches of the height split's decodes."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from centernet_lightning_torch import build_centernet
+    from centernet_lightning_torch.models.centernet import CenterNet
+    from centernet_lightning_torch.parallel import dist
+    from centernet_lightning_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = build_centernet({"model": dict(FLAGSHIP_CFG)}, seed=0, device="cpu")
+    perturb_bn(cpu.model, 31)
+    start = {k: v.detach().clone() for k, v in cpu.model.state_dict().items()}
+    del cpu
+    pred = build_centernet({"model": dict(FLAGSHIP_CFG)}, seed=0)
+    pred.model.load_state_dict(start)
+    images = torch.randint(0, 256, (MESH_BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(32))
+    refs = {}
+    with torch.inference_mode():
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            pred.model.to(dtype)
+            heads = pred.model(pred.prepare_images(images.cuda()).to(dtype))
+            refs[name] = {k: v.cpu() for k, v in heads.items()}
+    del pred, heads
+    torch.save(start, os.path.join(work, "start.pt"))
+    torch.save(refs, os.path.join(work, "ref.pt"))
+    torch.save(images, os.path.join(work, "images.pt"))
+    task = CenterNet(**FLAGSHIP_TRAIN)
+    task.init(torch.Generator().manual_seed(33))
+    perturb_bn(task.model, 34)
+    model = task.model.to("cuda", memory_format=torch.channels_last)
+    start_step = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = detection_batches(1, MESH_BATCH, SIZE, 80, "cpu", 35)[0]
+    torch.save(start_step, os.path.join(work, "start_step.pt"))
+    torch.save(batch, os.path.join(work, "batch.pt"))
+    one = ddp_one_step(task, model, start_step, batch, None)
+    del model
+    torch.cuda.empty_cache()
+
+    ranks, wall = {}, {}
+    for world in MESH_WORLDS:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+             str(world), work], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(world)]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        wall[world] = time.perf_counter() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"model_axis_path: rank {r} of {world} "
+                                     f"exited {p.returncode}:\n{o[-3000:]}")
+        ranks[world] = [torch.load(os.path.join(work, f"rank_{world}_{r}.pt"))
+                        for r in range(world)]
+    grid = torch.load(os.path.join(work, "grid_weights.pt"))
+    shutil.rmtree(work, ignore_errors=True)
+
+    start_step = {k: v.cpu() for k, v in start_step.items()}
+    names = sorted(k for k, _ in task.model.named_parameters())
+    stats = [k for k in start_step if k.endswith(("running_mean", "running_var"))]
+
+    def rel_change(got, ref, keys):
+        diff = sum(((got[k] - ref[k]) ** 2).sum().item() for k in keys)
+        size = sum(((ref[k] - start_step[k]) ** 2).sum().item() for k in keys)
+        return (diff / max(size, 1e-30)) ** 0.5
+
+    grid_gaps = {"f32_update": rel_change(grid, one[0], names),
+                 "f32_stats": rel_change(grid, one[0], stats)}
+
+    def within(g):
+        return all(v["max_abs_diff"] <= v["tolerance"]
+                   for k, v in g.items() if k in ("heatmap", "box_2d"))
+
+    rows = [dict(world=w, rank=r, **out["tp"]["float32"]) for w in MESH_WORLDS
+            for r, out in enumerate(ranks[w])]
+    band = [out["band"] for w in MESH_WORLDS for out in ranks[w]]
+    checks = {
+        "tp_f32_within": all(within(out["tp"]["float32"])
+                             for w in MESH_WORLDS for out in ranks[w]),
+        "weights_split": all(out["tp"]["float32"]["split_weights"] > 0
+                             for w in MESH_WORLDS for out in ranks[w]),
+        "band_f32_within": all(within(b["float32"]) for b in band),
+        "no_gathers_at_512_over_4": all(out["band"]["float32"]["gathers"] == 0
+                                        for out in ranks[4]),
+        "one_peak_launch_a_batch": all(b[d]["peak_launches"] == 1
+                                       for b in band for d in b),
+        "detections_of_gathered_maps": all(
+            b[d]["detections_are_topk_of_gathered"] for b in band for d in b),
+        "same_detections_as_one_process": all(
+            b["float32"]["same_detections_as_one_process"] for b in band),
+        "peak_maps_equal_plain": all(b[d]["peak_maps_equal_plain"]
+                                     for b in band for d in b),
+        "grid_update": grid_gaps["f32_update"] <= SGD_UPDATE_TOL,
+        "grid_stats": grid_gaps["f32_stats"] <= DDP_STATS_TOL,
+        "grid_losses_finite": all(np.isfinite(v) for out in ranks[4]
+                                  for v in out["grid_step"]["losses"].values()),
+    }
+
+    # the grid's collectives in a group of one over NCCL
+    with torchrun_env(_free_port()):
+        dist.init_from_env("cuda")
+        try:
+            g = tdist.group.WORLD
+            one_mesh = pm.Mesh(1, 1, 0, 0, g, g)
+            y = torch.randn(2, 8, 6, 5, device="cuda")
+            nccl = {
+                "backend": tdist.get_backend(),
+                "channel_gather": torch.equal(
+                    pm._GatherChannels.apply(y, g, 0, 1), y),
+                "halo": torch.equal(pm._Bands(one_mesh)._halo(y, 2, 1, 2, 0.0),
+                                    torch.nn.functional.pad(y, (0, 0, 1, 2))),
+                "data_mean": torch.equal(
+                    dist.mean_gradients({"g": y}, group=g)["g"], y)}
+        finally:
+            tdist.destroy_process_group()
+    checks["nccl_group_of_one"] = all(v for k, v in nccl.items() if k != "backend")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    emit({"phase": "model_axis_path", "model": "resnet34_fpn256",
+          "batch": MESH_BATCH, "image_size": SIZE, "backend": "gloo on one card "
+          "(host copies; no interconnect figure)", "tensor_parallel": rows,
+          "height_split": [dict(world=w, rank=r, **out["band"])
+                           for w in MESH_WORLDS for r, out in enumerate(ranks[w])],
+          "grid": {"shape": list(MESH_GRID), "rel_l2": grid_gaps,
+                   "losses_one_process": one[1],
+                   "losses_grid": [out["grid_step"] for out in ranks[4]],
+                   "tolerance": {"update_rel_l2": SGD_UPDATE_TOL,
+                                 "stats_rel_l2": DDP_STATS_TOL}},
+          "nccl_group_of_one": nccl, "ranks_wall_s": wall, "checks": checks,
+          "nvidia_smi": card, "phase_s": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"model_axis_path failed: {checks}")
+    return sum(b[d]["peak_launches"] for b in band for d in b)
+
+
+def profile_tools(card):
+    """`profile_tools`: cli.profile_serve (bf16, then --quantize) at b8
+    and cli.profile_train at b4, 512², in this process: their JSON, every
+    category and segment present, conv and peak-kernel time on the
+    device, every category's time at least 0, their sum the device time
+    a call and that no more than the call's time, bwd = grad - fwd_loss, the MFU against the H100 datasheet's
+    peak. Returns the peak launches of the serving calls."""
+    from centernet_lightning_torch.cli import profile_serve, profile_train
+    from centernet_lightning_torch.ops import peak_decode
+
+    t_phase = time.perf_counter()
+    serve = {}
+    before = peak_decode.peak_class_scores_cuda.launches
+    for name, argv in (("bfloat16", ["--batch-size", "8"]),
+                       ("int8", ["--batch-size", "8", "--quantize"])):
+        serve[name] = captured_json(profile_serve.main, argv + ["--top", "6"])
+    launches = peak_decode.peak_class_scores_cuda.launches - before
+    train = captured_json(profile_train.main, ["--batch-size", "4"])
+    cats = {"conv", "peak_kernel", "quantize_dequant", "other"}
+    ms = train["ms"]
+    checks = {
+        "serve_categories": all(set(v["categories_ms"]) == cats
+                                for v in serve.values()),
+        "serve_on_device": all(v["time_of"].startswith("device")
+                               and v["categories_ms"]["conv"] > 0
+                               and v["categories_ms"]["peak_kernel"] > 0
+                               for v in serve.values()),
+        "int8_stages": serve["int8"]["categories_ms"]["quantize_dequant"] > 0,
+        "serve_breakdown_adds_up": all(
+            min(v["categories_ms"].values()) >= 0
+            and abs(sum(v["categories_ms"].values()) - v["ms_per_call"])
+            <= 1e-6 * v["ms_per_call"]
+            and v["ms_per_call"] <= v["ms_per_batch"] for v in serve.values()),
+        "train_segments": set(ms) == {"full", "fwd", "fwd_loss", "grad",
+                                      "render", "optim"},
+        "train_bwd": train["ms_derived"]["bwd (grad - fwd_loss)"]
+                     == ms["grad"] - ms["fwd_loss"],
+        "train_mfu": isinstance(train["mfu_vs_peak"], float)
+                     and 0 < train["mfu_vs_peak"] < 1,
+    }
+    emit({"phase": "profile_tools", "profile_serve": serve,
+          "profile_train": train, "checks": checks, "nvidia_smi": card,
+          "phase_s": time.perf_counter() - t_phase})
+    if not all(checks.values()):
+        raise AssertionError(f"profile_tools failed: {checks}")
+    return launches
+
+
+def mesh_phases(card, reset_launches, read_launches):
+    """`dcn_export_path`, `model_axis_path` and `profile_tools`. Returns
+    the launches of the kernels on their paths."""
+    launches = collections.Counter(dcn_export_path(card, reset_launches,
+                                                   read_launches))
+    launches["peak_class_scores_cuda"] += model_axis_path(card)
+    launches["peak_class_scores_cuda"] += profile_tools(card)
     return launches
 
 
@@ -4043,6 +4510,10 @@ def main() -> int:
     for name, n in parallel_phases(card, reset_launches, read_launches).items():
         path_launches[name] += n
 
+    # ---- 5i. DCN export, the model axis, the profile tools -----------------
+    for name, n in mesh_phases(card, reset_launches, read_launches).items():
+        path_launches[name] += n
+
     # ---- 6. forward parity on the card ---------------------------------
     t_phase = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
@@ -4180,5 +4651,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         ddp_rank_worker(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_port_parallel*.py).
+"""One rank of the port's data-parallel and grid tests
+(tests/test_torch_port_parallel*.py, tests/test_torch_port_mesh.py).
 
     python tests/_torch_port_parallel_worker.py <scenario> <rank> <world> <dir>
 
@@ -26,6 +27,7 @@ from centernet_lightning_torch.models import layers  # noqa: E402
 from centernet_lightning_torch.models.centernet import CenterNet  # noqa: E402
 from centernet_lightning_torch.models.fairmot import FairMOT  # noqa: E402
 from centernet_lightning_torch.parallel import dist  # noqa: E402
+from centernet_lightning_torch.parallel import mesh as mesh_mod  # noqa: E402
 from centernet_lightning_torch.train import Trainer  # noqa: E402
 from centernet_lightning_torch.train import optim as t_optim  # noqa: E402
 from centernet_lightning_torch.train import state as t_state  # noqa: E402
@@ -245,8 +247,94 @@ def scenario_cli(rank, world, tmp):
     return {"rc": rc, "initialized": torch.distributed.is_initialized()}
 
 
+# ---- the (data, model) grid (parallel/mesh.py) ------------------------------
+
+def _model(case):
+    task = CenterNet(**case["cfg"])
+    model = task.model.to(memory_format=torch.channels_last)
+    model.load_state_dict(case["state_dict"], strict=True)
+    return task, model
+
+
+@contextlib.contextmanager
+def gather_backward(name):
+    """'own_slice': the port as it is. 'reduce_scatter': the channel
+    gather's backward sums the cotangent over the model group before
+    taking the rank's slice (n_model times the right one)."""
+    saved = mesh_mod._GatherChannels
+    if name == "reduce_scatter":
+        class ReduceScatter(saved):
+            @staticmethod
+            def backward(ctx, grad):
+                grad = grad.contiguous()
+                torch.distributed.all_reduce(grad, group=ctx.group)
+                return grad.narrow(1, ctx.rank * ctx.size, ctx.size), None, None, None
+        mesh_mod._GatherChannels = ReduceScatter
+    try:
+        yield
+    finally:
+        mesh_mod._GatherChannels = saved
+
+
+def grid_step(case, mesh, model_parallel, backward):
+    """One step of `case` on the grid from its weights: the whole weights
+    after it (split ones gathered) and the losses."""
+    task, model = _model(case)
+    names = mesh_mod.shard_params(model, mesh, model_parallel=model_parallel)
+    state = t_state.TrainState(model=model,
+                               tx=t_optim.make_optimizer(model, **case["opt"]))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in mesh_mod.shard_batch(case["batch"], mesh).items()}
+    with gather_backward(backward):
+        state, losses = t_state.make_train_step(task, mesh=mesh)(state, batch)
+    return {"state": mesh_mod.full_state_dict(model), "names": names,
+            "losses": {k: float(v) for k, v in losses.items()}}
+
+
+def scenario_mesh(rank, world, tmp):
+    """On a (1, world) grid: the height-split forwards (beside the same
+    model's forward on the whole images) and the column-parallel forward of each case in mesh_in.pt, then the
+    column-parallel steps; on a (2, world / 2) grid (grid_in.pt) the steps
+    with replicated and with split weights."""
+    inputs = torch.load(os.path.join(tmp, "mesh_in.pt"), weights_only=False)
+    mesh = mesh_mod.create_mesh(inputs["n_data"], world // inputs["n_data"])
+    out = {}
+    for name, case in inputs["bands"].items():
+        _, model = _model(case)
+        before = mesh_mod.spatial_forward.gathers
+        x = torch.from_numpy(case["images"])
+        with torch.no_grad():
+            heads = mesh_mod.gather_bands(mesh_mod.spatial_forward(
+                model.eval(), mesh_mod.split_rows(x, mesh), mesh), mesh)
+            gathers = mesh_mod.spatial_forward.gathers - before
+            whole = model(x)
+        out["bands", name] = ({k: v.numpy() for k, v in heads.items()},
+                              gathers, {k: v.numpy() for k, v in whole.items()})
+    for name, case in inputs.get("refused", {}).items():
+        _, model = _model(case)
+        x = torch.from_numpy(case["images"])
+        try:
+            with torch.no_grad():
+                mesh_mod.spatial_forward(model.eval(),
+                                         mesh_mod.split_rows(x, mesh), mesh)
+            out["refused", name] = "ran"
+        except NotImplementedError as err:
+            out["refused", name] = str(err)
+    for name, case in inputs["column"].items():
+        _, model = _model(case)
+        names = mesh_mod.shard_params(model, mesh, model_parallel=True)
+        with torch.no_grad():
+            heads = model.eval()(torch.from_numpy(case["images"]))
+        out["column", name] = ({k: v.numpy() for k, v in heads.items()}, names)
+    for name, case in inputs["steps"].items():
+        for model_parallel, backward in case["variants"]:
+            out[name, model_parallel, backward] = grid_step(
+                case, mesh, model_parallel, backward)
+    return out
+
+
 SCENARIOS = {"steps": scenario_steps, "validate": scenario_validate,
-             "stop": scenario_stop, "cli": scenario_cli}
+             "stop": scenario_stop, "cli": scenario_cli, "mesh": scenario_mesh}
 
 
 def main():

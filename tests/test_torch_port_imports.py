@@ -49,7 +49,9 @@ def test_serving_modules_import_no_jax(module):
 
 
 PARALLEL_MODULES = ["parallel/__init__.py", "parallel/dist.py",
-                    "cli/run_ablations.py", "data/shapes.py"]
+                    "cli/run_ablations.py", "data/shapes.py",
+                    "parallel/mesh.py", "cli/profile_serve.py",
+                    "cli/profile_train.py", "ops/_library.py"]
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES)
