@@ -12,7 +12,10 @@ normalised float; uint8 batches go to the card from pinned memory without
 waiting for it and are normalised there. On CUDA the decode's peak stage
 is the hand-written kernel (ops/peak_decode.py). Tracking (a model with a
 `reid_config`) runs the card's forward and decode and the host's
-`Tracker` (models/tracker.py), pipelined so that the two overlap.
+`Tracker` (models/tracker.py), pipelined so that the two overlap. While a
+profiler runs, `gather_detection2d` on images is the span `api.call`
+around `api.prepare`, `api.forward`, `api.decode` and `api.to_host`
+(utils/spans.py).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from .ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
 from .train.checkpoint import load_checkpoint
 from .train.config import load_config, normalize_config
 from .utils import transfer
+from .utils.spans import span
 from .utils.viz import draw_boxes
 
 __all__ = ["CenterNetPredictor", "QuantizedCenterNetPredictor", "build_centernet"]
@@ -54,12 +58,13 @@ def _extract_norm(data_cfg: Optional[Dict]) -> tuple:
 
 
 def _to_numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    res = {"bboxes": out["boxes"].cpu().numpy(),
-           "labels": out["labels"].cpu().numpy(),
-           "scores": out["scores"].cpu().numpy()}
-    if "embeddings" in out:
-        res["embeddings"] = out["embeddings"].cpu().numpy()
-    return res
+    with span("api.to_host"):
+        res = {"bboxes": out["boxes"].cpu().numpy(),
+               "labels": out["labels"].cpu().numpy(),
+               "scores": out["scores"].cpu().numpy()}
+        if "embeddings" in out:
+            res["embeddings"] = out["embeddings"].cpu().numpy()
+        return res
 
 
 class CenterNetPredictor:
@@ -105,11 +110,12 @@ class CenterNetPredictor:
     def prepare_images(self, images) -> torch.Tensor:
         """The model's input: an NHWC batch on the device, uint8 normalised
         (ops/preprocess.py), float cast to the compute dtype."""
-        x = self.upload(images)
-        if x.dtype == torch.uint8:
-            return preprocess(x, mean=self._norm[0], std=self._norm[1],
-                              dtype=self._dtype())
-        return x.to(self._dtype())
+        with span("api.prepare"):
+            x = self.upload(images)
+            if x.dtype == torch.uint8:
+                return preprocess(x, mean=self._norm[0], std=self._norm[1],
+                                  dtype=self._dtype())
+            return x.to(self._dtype())
 
     def __call__(self, images, train: bool = False):
         """Raw forward: the encoded NHWC outputs {heatmap (logits), box_2d}.
@@ -137,12 +143,15 @@ class CenterNetPredictor:
         """Preprocess + forward + decode, leaving the results on the device
         (what `gather_detection2d` copies to the host)."""
         with torch.inference_mode():
-            outputs = self.model(self.prepare_images(images))
-            return self.task.decode_detections(
-                outputs["heatmap"], outputs["box_2d"],
-                reid=outputs.get("reid"), normalize_boxes=normalize_boxes,
-                num_detections=num_detections, nms_kernel=nms_kernel,
-                from_logits=True)
+            x = self.prepare_images(images)
+            with span("api.forward"):
+                outputs = self.model(x)
+            with span("api.decode"):
+                return self.task.decode_detections(
+                    outputs["heatmap"], outputs["box_2d"],
+                    reid=outputs.get("reid"), normalize_boxes=normalize_boxes,
+                    num_detections=num_detections, nms_kernel=nms_kernel,
+                    from_logits=True)
 
     def gather_detection2d(self, images, num_detections: Optional[int] = None,
                            nms_kernel: Optional[int] = None,
@@ -164,9 +173,10 @@ class CenterNetPredictor:
                     num_detections=num_detections, nms_kernel=nms_kernel,
                     from_logits=True)
             return _to_numpy(out)
-        return _to_numpy(self.detect(images, num_detections=num_detections,
-                                     nms_kernel=nms_kernel,
-                                     normalize_boxes=normalize_boxes))
+        with span("api.call"):
+            return _to_numpy(self.detect(images, num_detections=num_detections,
+                                         nms_kernel=nms_kernel,
+                                         normalize_boxes=normalize_boxes))
 
     def inference_detection(self, img_dir: str, batch_size: int = 4,
                             num_detections: int = 100,

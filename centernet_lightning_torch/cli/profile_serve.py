@@ -18,7 +18,9 @@ apart by quantize.py's profiler ranges they run in), and everything
 else. On the card the
 categories are CUDA kernel time; with `--device cpu` they are the host's
 op time (there is no device), and the JSON says which. The card's name
-and power limit are printed with the result.
+and power limit are printed with the result. `--trace` shows the
+predictor's spans `api.prepare`, `api.forward` and `api.decode`
+(utils/spans.py).
 """
 from __future__ import annotations
 
@@ -139,10 +141,7 @@ def profile_categories(fn: Callable[[], object], device: torch.device,
                 staged[name][stage] += us * scale
     if cuda:  # every kernel of the trace, whichever op (if any) launched it
         for e in prof.key_averages():
-            # the stage ranges' device rows span their kernels (and the
-            # gaps between them): not kernels of their own
-            if (str(e.device_type).endswith("CUDA")
-                    and not e.key.startswith("int8_conv.")):
+            if str(e.device_type).endswith("CUDA"):
                 rows[e.key] += e.self_device_time_total * scale
     cats: Dict[str, float] = defaultdict(float)
     stages: Dict[str, float] = defaultdict(float)

@@ -15,13 +15,15 @@ Segments (ms a step):
     optim     the optimizer update alone (given gradients)
 
 Derived: bwd = grad - fwd_loss, loss+render = fwd_loss - fwd and
-optimizer-in-context = full - grad. FLOPs a step come from
-`torch.utils.flop_counter.FlopCounterMode` over one full step (forward
-and backward; the optimizer's elementwise work is not counted), and the
-MFU is reckoned against the H100 SXM datasheet's dense peaks (bf16
-989.4 TFLOP/s, TF32 494.7 for f32) with the card's name and power limit
-beside it; on the CPU it is not measured. ResNet-34 FPN-256 (heads 256 x
-3, 80 classes), AdamW, 128 padded boxes an image, about 30% valid; weights
+optimizer-in-context = full - grad. `torch_op_flops_per_step` is
+`torch.utils.flop_counter.FlopCounterMode`'s count over one full step: the
+FLOPs of the torch ops it knows (convolutions and matrix products, forward
+and backward), none of the hand-written kernels' (ctypes launches), and it
+moves whenever a kernel takes the place of torch ops. It is the port's op
+count, not the model's FLOPs, so no utilization is reckoned from it (the
+benchmark's `mfu.*` count the plain reference's FLOPs). `--trace` shows
+the train step's spans (utils/spans.py). ResNet-34 FPN-256 (heads 256 x 3,
+80 classes), AdamW, 128 padded boxes an image, about 30% valid; weights
 and data from a seed.
 """
 from __future__ import annotations
@@ -37,10 +39,7 @@ import torch
 
 from .profile_serve import FLAGSHIP, card_label, slope_seconds, sync
 
-__all__ = ["PEAK_FLOPS", "main"]
-
-# NVIDIA H100 SXM data sheet, dense, at the 700 W limit
-PEAK_FLOPS = {"bf16": 989.4e12, "f32": 494.7e12}
+__all__ = ["main"]
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -153,10 +152,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "optimizer-in-context (full - grad)": ms["full"] - ms["grad"],
         },
         "images_per_sec": batch_size / segments["full"],
-        "flops_per_step": flops,
-        "peak_flops": PEAK_FLOPS[dtype] if cuda else None,
-        "mfu_vs_peak": (flops / segments["full"] / PEAK_FLOPS[dtype]
-                        if cuda else "not measured"),
+        "torch_op_flops_per_step": flops,
     }
     if args.trace:
         from torch.profiler import ProfilerActivity, profile

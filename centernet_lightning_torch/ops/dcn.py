@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import handle_torch_function, has_torch_function
 
+from ..utils.spans import span
+
 __all__ = ["TAPS", "dcn_planes", "tap_sample_reference", "fused_reference",
            "exact_taps", "check_sampling_inputs", "twin_vjp"]
 
@@ -95,14 +97,15 @@ def twin_vjp(twin, inputs, wants, grad: torch.Tensor, *static):
     """The backward of a DCN kernel: recompute its twin with grad enabled
     and return d(twin)/d(input) . grad for each input whose `wants` is
     true (None for the others), as the JAX package's custom VJPs do with
-    `jax.vjp` of the XLA twin (ops/pallas_dcn.py:398-406, 417-426)."""
-    with torch.enable_grad():
+    `jax.vjp` of the XLA twin (ops/pallas_dcn.py:398-406, 417-426). The
+    whole of it is the span `dcn.recompute`."""
+    with span("dcn.recompute"), torch.enable_grad():
         leaves = [t.detach().requires_grad_() if w else t
                   for t, w in zip(inputs, wants)]
         wrt = [t for t, w in zip(leaves, wants) if w]
         got = iter(torch.autograd.grad(twin(*leaves, *static), wrt, grad)
                    if wrt else ())
-    return tuple(next(got) if w else None for w in wants)
+        return tuple(next(got) if w else None for w in wants)
 
 
 def _pad_hw(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -40,7 +40,6 @@ dequant) is a range named `int8_conv.<stage>`.
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -50,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .models.layers import SameConv2d, same_pads
+from .utils.spans import span
 
 __all__ = [
     "Int8Conv2d",
@@ -202,14 +202,6 @@ def int8_conv_plain(x_q: torch.Tensor, w_q: torch.Tensor, stride, pads,
     return y.to(torch.int32, memory_format=fmt)
 
 
-def _stage(name: str):
-    """A profiler range around one stage of the int8 conv (quantize,
-    im2col, int_mm, dequant), only while a profiler runs."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(f"int8_conv.{name}")
-    return contextlib.nullcontext()
-
-
 def _round8(n: int) -> int:
     return -(-n // 8) * 8
 
@@ -295,7 +287,7 @@ def _conv_mm(x_q, packed, w_shape, stride, pads, dilation, epilogue):
     wo = (w + left + right - (kw - 1) * dilation[1] - 1) // stride[1] + 1
     xh = x_q.permute(0, 2, 3, 1)                  # NHWC, as channels_last lies
     if any(pads):
-        with _stage("im2col"):
+        with span("int8_conv.im2col"):
             xh = F.pad(xh, (0, 0, left, right, top, bottom))
     k = kh * kw * cg
     kp = packed.shape[2]
@@ -308,18 +300,18 @@ def _conv_mm(x_q, packed, w_shape, stride, pads, dilation, epilogue):
         rows = xc.shape[0] * ho * wo
         per_group = []
         for g in range(groups):
-            with _stage("im2col"):
+            with span("int8_conv.im2col"):
                 a = _im2col(xc[..., g * cg:(g + 1) * cg], kh, kw, stride,
                             dilation, ho, wo)
                 pad_rows = max(_MIN_ROWS - rows, 0)
                 if kp != k or pad_rows:
                     a = F.pad(a, (0, kp - k, 0, pad_rows))
-            with _stage("int_mm"):
+            with span("int8_conv.int_mm"):
                 acc = _int_mm(a, packed[g].t(), shape)
             per_group.append(acc[:rows, :og])
         acc = per_group[0] if groups == 1 else torch.cat(per_group, dim=1)
         if epilogue is not None:
-            with _stage("dequant"):
+            with span("int8_conv.dequant"):
                 acc = epilogue(acc)
         outs.append(acc.reshape(xc.shape[0], ho, wo, o))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -383,7 +375,7 @@ class Int8Conv2d(nn.Module):
                          out=torch.empty_like(y, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with _stage("quantize"):
+        with span("int8_conv.quantize"):
             x_q = quantize_activation(x, self.x_scale)
         pads = self.pads(x.shape[2], x.shape[3])
         if x.device.type == "cuda" and not self.plain:

@@ -10,7 +10,10 @@ A step: uint8 images normalised on the device; the forward in
 f32 through the cast, and BatchNorm keeps f32 running statistics); the
 losses in f32 (the task's `train_forward` when it has one, as FairMOT
 does, else its `compute_loss` on the forward); the gradient; the optimizer
-update; the EMA.
+update; the EMA. While a profiler runs the step is the span `train.step`
+(utils/spans.py) around `train.cast`, `train.forward`, `train.loss` (none
+for `train_forward`, whose span `train.forward` holds the losses),
+`train.backward` and `train.optimizer`.
 
 Over several processes (`parallel/dist.py`) each takes the step on its
 slice of the global batch: BatchNorm's statistics and the losses' counts
@@ -35,6 +38,7 @@ from torch.func import functional_call
 
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
 from ..parallel import dist
+from ..utils.spans import span
 from .optim import named_grads
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step", "to_device"]
@@ -127,31 +131,39 @@ def make_train_step(task, compute_dtype: Optional[Any] = None,
             return step(state, batch)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        model = state.model.train()
-        params = state.params()
-        call = _caller(model, None if dtype is None else
-                       {k: p.to(dtype) for k, p in params.items()})
-        fwd_batch = dict(batch, image=prepare(batch["image"]))
-        train_forward = getattr(task, "train_forward", None)
-        if train_forward is not None:
-            losses = train_forward(call, fwd_batch)
-        else:
-            losses = task.compute_loss(call("forward", fwd_batch["image"]),
-                                       fwd_batch)
-        grads = torch.autograd.grad(losses["total"], list(params.values()),
-                                    allow_unused=True)
-        state.tx.update(params, named_grads(params, grads))
-        state.step += 1
-        if ema_decay > 0 and state.ema_params is not None \
-                and state.step % ema_every == 0:
-            t = np.float32(state.step // ema_every)
-            d = float(np.minimum(np.float32(ema_decay),
-                                 (np.float32(1) + t) / (np.float32(10) + t)))
-            with torch.no_grad():
-                for k, e in state.ema_params.items():
-                    e.copy_(e * d + params[k] * (1.0 - d))
-        return state, dist.mean_losses({k: v.detach()
-                                        for k, v in losses.items()})
+        with span("train.step"):
+            model = state.model.train()
+            params = state.params()
+            with span("train.cast"):
+                cast = (None if dtype is None else
+                        {k: p.to(dtype) for k, p in params.items()})
+            call = _caller(model, cast)
+            fwd_batch = dict(batch, image=prepare(batch["image"]))
+            train_forward = getattr(task, "train_forward", None)
+            if train_forward is not None:
+                with span("train.forward"):
+                    losses = train_forward(call, fwd_batch)
+            else:
+                with span("train.forward"):
+                    outputs = call("forward", fwd_batch["image"])
+                with span("train.loss"):
+                    losses = task.compute_loss(outputs, fwd_batch)
+            with span("train.backward"):
+                grads = torch.autograd.grad(losses["total"], list(params.values()),
+                                            allow_unused=True)
+            with span("train.optimizer"):
+                state.tx.update(params, named_grads(params, grads))
+            state.step += 1
+            if ema_decay > 0 and state.ema_params is not None \
+                    and state.step % ema_every == 0:
+                t = np.float32(state.step // ema_every)
+                d = float(np.minimum(np.float32(ema_decay),
+                                     (np.float32(1) + t) / (np.float32(10) + t)))
+                with torch.no_grad():
+                    for k, e in state.ema_params.items():
+                        e.copy_(e * d + params[k] * (1.0 - d))
+            return state, dist.mean_losses({k: v.detach()
+                                            for k, v in losses.items()})
 
     return train_step
 

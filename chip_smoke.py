@@ -3672,8 +3672,9 @@ def profile_tools(card):
     and cli.profile_train at b4, 512², in this process: their JSON, every
     category and segment present, conv and peak-kernel time on the
     device, every category's time at least 0, their sum the device time
-    a call and that no more than the call's time, bwd = grad - fwd_loss, the MFU against the H100 datasheet's
-    peak. Returns the peak launches of the serving calls."""
+    a call and that no more than the call's time, bwd = grad - fwd_loss, and
+    a positive torch-op FLOP count. Returns the peak launches of the serving
+    calls."""
     from centernet_lightning_torch.cli import profile_serve, profile_train
     from centernet_lightning_torch.ops import peak_decode
 
@@ -3704,8 +3705,7 @@ def profile_tools(card):
                                       "render", "optim"},
         "train_bwd": train["ms_derived"]["bwd (grad - fwd_loss)"]
                      == ms["grad"] - ms["fwd_loss"],
-        "train_mfu": isinstance(train["mfu_vs_peak"], float)
-                     and 0 < train["mfu_vs_peak"] < 1,
+        "train_op_flops": train["torch_op_flops_per_step"] > 0,
     }
     emit({"phase": "profile_tools", "profile_serve": serve,
           "profile_train": train, "checks": checks, "nvidia_smi": card,
