@@ -29,8 +29,9 @@ from torch.overrides import handle_torch_function, has_torch_function
 
 from ..utils.spans import span
 
-__all__ = ["TAPS", "dcn_planes", "tap_sample_reference", "fused_reference",
-           "exact_taps", "check_sampling_inputs", "twin_vjp"]
+__all__ = ["TAPS", "dcn_planes", "tap_sample_reference",
+           "tap_sample_backward_reference", "fused_reference", "exact_taps",
+           "check_sampling_inputs", "twin_vjp"]
 
 # (ty, tx) of the 3x3 taps in row-major order, as the JAX block orders them
 TAPS = tuple((ty, tx) for ty in (-1, 0, 1) for tx in (-1, 0, 1))
@@ -73,13 +74,15 @@ def dcn_planes(offsets: torch.Tensor, mask: Optional[torch.Tensor],
             fy.contiguous(), fx.contiguous(), wm.contiguous())
 
 
-def check_sampling_inputs(x: torch.Tensor, planes: Planes, d: int) -> None:
-    """Shape, dtype and device checks shared by the two kernel wrappers."""
+def check_sampling_inputs(x: torch.Tensor, planes: Planes,
+                          d: Optional[int]) -> None:
+    """Shape, dtype and device checks shared by the kernel wrappers (d None:
+    the sampler's backward, which takes no displacement bound)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, H, W, C), got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if not isinstance(d, int) or d < 1:
+    if d is not None and (not isinstance(d, int) or d < 1):
         raise ValueError(f"max displacement must be a positive int, got {d!r}")
     want = (*x.shape[:3], len(TAPS))
     for name, p, dtype in zip(("a0", "b0", "fy", "fx", "wm"), planes,
@@ -94,11 +97,12 @@ def check_sampling_inputs(x: torch.Tensor, planes: Planes, d: int) -> None:
 
 
 def twin_vjp(twin, inputs, wants, grad: torch.Tensor, *static):
-    """The backward of a DCN kernel: recompute its twin with grad enabled
-    and return d(twin)/d(input) . grad for each input whose `wants` is
-    true (None for the others), as the JAX package's custom VJPs do with
-    `jax.vjp` of the XLA twin (ops/pallas_dcn.py:398-406, 417-426). The
-    whole of it is the span `dcn.recompute`."""
+    """The backward of the fused DCN kernel, and of the sampler on a CPU
+    tensor: recompute the twin with grad enabled and return
+    d(twin)/d(input) . grad for each input whose `wants` is true (None for
+    the others), as the JAX package's custom VJPs do with `jax.vjp` of the
+    XLA twin (ops/pallas_dcn.py:398-406, 417-426). The whole of it is the
+    span `dcn.recompute`."""
     with span("dcn.recompute"), torch.enable_grad():
         leaves = [t.detach().requires_grad_() if w else t
                   for t, w in zip(inputs, wants)]
@@ -143,6 +147,53 @@ def tap_sample_reference(x: torch.Tensor, a0, b0, fy, fx, wm,
                 acc = acc + (wy * wx).to(x.dtype)[..., None] * sl
         taps.append(acc)
     return torch.stack(taps, dim=3)
+
+
+def tap_sample_backward_reference(x: torch.Tensor, a0, b0, fy, fx, wm,
+                                  grad_taps: torch.Tensor):
+    """Twin of csrc/dcn_sample.cu's backward (`dcn_sample_grad`): the
+    gradients of `tap_sample_reference` in the four-corner form, with no
+    recompute and no displacement bound (the planes carry the clipped
+    floors). For each pixel p, tap t and corner (r, s) inside the image,
+    with g = grad_taps[p, t], x_rs the corner's channels, wy = (1 - fy, fy)
+    and wx = (1 - fx, fx):
+
+      dx[corner] += ((wy_r * wm) * wx_s) * g      (by index_add_)
+      dfy = wm * sum_c g * (wx_0 (x10 - x00) + wx_1 (x11 - x01))
+      dfx = wm * sum_c g * (wy_0 (x01 - x00) + wy_1 (x11 - x10))
+      dwm = sum_c g * sum_rs wy_r wx_s x_rs
+
+    Corners outside the image contribute nothing, as the twin's zero pad.
+    Sums run in f32; dx is rounded to x's dtype once. grad_taps (N, H, W,
+    T, C). Returns (dx in x.dtype, dfy, dfx, dwm in f32).
+    """
+    n, h, w, c = x.shape
+    t = len(TAPS)
+    g = grad_taps.float()
+    flat = x.float().reshape(n * h * w, c)
+    dx = torch.zeros((n * h * w, c), dtype=torch.float32, device=x.device)
+    dev = x.device
+    ys = torch.arange(h, device=dev).view(1, h, 1, 1)
+    xs = torch.arange(w, device=dev).view(1, 1, w, 1)
+    base = (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1, 1)
+    wy = (1.0 - fy, fy)
+    wx = (1.0 - fx, fx)
+    dot = {}
+    for r in (0, 1):
+        yy = ys + a0.long() + r
+        for s in (0, 1):
+            xx = xs + b0.long() + s
+            inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            idx = (base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).reshape(-1)
+            corner = flat[idx].reshape(n, h, w, t, c)
+            dot[r, s] = torch.where(inside, (g * corner).sum(-1), 0.0)
+            wgt = torch.where(inside, (wy[r] * wm) * wx[s], 0.0)
+            dx.index_add_(0, idx, (wgt[..., None] * g).reshape(-1, c))
+    dfy = wm * (wx[0] * (dot[1, 0] - dot[0, 0]) + wx[1] * (dot[1, 1] - dot[0, 1]))
+    dfx = wm * (wy[0] * (dot[0, 1] - dot[0, 0]) + wy[1] * (dot[1, 1] - dot[1, 0]))
+    dwm = (wy[0] * (wx[0] * dot[0, 0] + wx[1] * dot[0, 1])
+           + wy[1] * (wx[0] * dot[1, 0] + wx[1] * dot[1, 1]))
+    return dx.reshape(n, h, w, c).to(x.dtype), dfy, dfx, dwm
 
 
 def fused_reference(x: torch.Tensor, a0, b0, fy, fx, wm,
