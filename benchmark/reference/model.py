@@ -1,14 +1,25 @@
-"""The reference detector: backbone -> FPN -> heads, from a configuration's
+"""The reference detector: backbone -> neck -> heads, from a configuration's
 `model` section, NHWC images in, NHWC maps out.
 
-  backbone  reference/backbones/<name>.py, found by name;
-  FPN       1x1 conv + BatchNorm laterals on the maps of strides 4-16 and
-            the same on stride 32 (blocks 0-3), then from stride 16 down to
-            4: x2 nearest upsample, sum with the lateral, and a 3x3 merge
-            block (blocks 4-6): conv + BatchNorm + ReLU, or the bounded
-            DCNv2 block for conv_type dcn_fast (d = 2) / dcn_fast_d<d>;
-  heads     heatmap (num_classes logits) and box_2d (4): `depth` 3x3 conv +
-            BatchNorm + ReLU blocks of `width`, then a 1x1 conv with bias.
+  backbone  reference/backbones/<backbone>.py, found by name:
+            `stages(prefix="backbone")` returns (fns, outs), the stage
+            functions fn(ctx, x) -> x in order and the indices of those
+            whose maps feed the neck (strides 4 to 32); each stage is
+            checkpointed on its own (nn.checkpoint_stage);
+  neck      reference/necks/<neck in lower case>.py, found by name ("FPN"
+            is necks/fpn.py): `forward(ctx, feats, neck_config,
+            prefix="neck")` takes the backbone's maps and returns the
+            stride-4 map; it checkpoints its own stages and raises
+            ValueError for a key of neck_config it does not model;
+  heads     heatmap (num_classes logits) and box_2d (4): `depth` 3x3
+            blocks of `width` and `block` (nn.conv_block, as the program's
+            models/heads.py:GenericHead), then a 1x1 conv with bias.
+
+A 3x3 block's engine follows its `conv_type` (nn.conv_block): `normal`,
+the exact DCNv2 (`dcn`, `deformable`) or the bounded DCNv2 (`dcn_fast`,
+`dcn_fast_d<d>`, `dcn_fused_d<d>`). A key the reference does not model is
+refused, never ignored: a model that is not the program's would be judged
+against it.
 """
 from __future__ import annotations
 
@@ -16,65 +27,38 @@ import importlib
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-from .nn import Ctx, conv, conv_bn_act, dcn_block
+from .nn import Ctx, checkpoint_stage, conv, conv_block
 
-HEADS = ("heatmap", "box_2d")
-STRIDE = 4           # the FPN emits the stride-4 map
-
-
-def _displacement(conv_type: str):
-    if conv_type == "normal":
-        return None
-    if conv_type == "dcn_fast":
-        return 2
-    if conv_type.startswith("dcn_fast_d"):
-        return int(conv_type[len("dcn_fast_d"):])
-    raise ValueError(f"the reference has no conv_type {conv_type!r}")
+STRIDE = 4           # the neck emits the stride-4 map
+HEAD_KEYS = ("width", "depth", "block")
+NOT_MODELLED = ("extra_block", "backbone_config", "reid_config")
 
 
-def _stage(ctx: Ctx, fn, x):
-    if ctx.checkpoint and torch.is_grad_enabled() and ctx.spec is None:
-        return checkpoint(lambda t: fn(ctx, t), x, use_reentrant=False)
-    return fn(ctx, x)
-
-
-def merge_block(ctx, name, x, width, d):
-    if d is None:
-        return conv_bn_act(ctx, name, x, width, 3)
-    return dcn_block(ctx, name, x, width, d)
-
-
-def fpn(ctx: Ctx, feats, cfg: Dict, prefix: str = "neck"):
-    if cfg.get("fuse_fn", "sum") != "sum" or cfg.get("weighted") or \
-            cfg.get("upsample_type", "nearest") != "nearest":
-        raise ValueError(f"the reference FPN is the summing nearest one: {cfg}")
-    width = cfg.get("out_channels", 256)
-    d = _displacement(cfg.get("conv_type", "normal"))
-    lat = [conv_bn_act(ctx, f"{prefix}.blocks.{i}", f, width, 1, act=None)
-           for i, f in enumerate(feats[:-1])]
-    x = conv_bn_act(ctx, f"{prefix}.blocks.{len(lat)}", feats[-1], width, 1,
-                    act=None)
-    for step, lateral in enumerate(reversed(lat)):
-        name = f"{prefix}.blocks.{len(lat) + 1 + step}"
-
-        def merge(ctx, x, lateral=lateral, name=name):
-            up = F.interpolate(x, scale_factor=2, mode="nearest")
-            return merge_block(ctx, name, lateral + up, width, d)
-
-        x = _stage(ctx, merge, x)
-    return x
+def neck_module(name: str):
+    """reference/necks/<name in lower case>.py."""
+    module = f"{__package__}.necks.{name.lower()}"
+    try:
+        return importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise ValueError(f"the reference has no neck {name!r}: "
+                         f"benchmark/reference/necks/{name.lower()}.py") from None
 
 
 def head(ctx: Ctx, name: str, x, cout: int, cfg: Dict):
+    unknown = sorted(set(cfg) - set(HEAD_KEYS))
+    if unknown:
+        raise ValueError(f"the reference head does not model {unknown}")
+    block = cfg.get("block", "normal")
+
     def run(ctx, x):
         for i in range(cfg.get("depth", 3)):
-            x = conv_bn_act(ctx, f"{name}.blocks.{i}", x, cfg.get("width", 256), 3)
+            x = conv_block(ctx, f"{name}.blocks.{i}", x, cfg.get("width", 256), block)
         return conv(ctx, f"{name}.out_conv", x, cout, 1, pad=0, bias=True,
                     kind="head_out")
-    return _stage(ctx, run, x).permute(0, 2, 3, 1)
+    return checkpoint_stage(ctx, run, x).permute(0, 2, 3, 1)
 
 
 def preprocess(images: torch.Tensor, mean, std) -> torch.Tensor:
@@ -87,14 +71,18 @@ def preprocess(images: torch.Tensor, mean, std) -> torch.Tensor:
 
 def forward(ctx: Ctx, model_cfg: Dict, x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """x: NCHW float32. Returns {heatmap, box_2d} NHWC logits / offsets."""
+    for key in NOT_MODELLED:
+        if model_cfg.get(key) is not None:
+            raise ValueError(f"the reference does not model {key}: {model_cfg[key]!r}")
+    neck = neck_module(model_cfg.get("neck", "FPN"))
     bb = importlib.import_module(f"{__package__}.backbones.{model_cfg['backbone']}")
     fns, outs = bb.stages()
     feats = []
     for i, fn in enumerate(fns):
-        x = _stage(ctx, fn, x)
+        x = checkpoint_stage(ctx, fn, x)
         if i in outs:
             feats.append(x)
-    y = fpn(ctx, feats, dict(model_cfg.get("neck_config") or {}))
+    y = neck.forward(ctx, feats, dict(model_cfg.get("neck_config") or {}), prefix="neck")
     head_cfg = dict(model_cfg.get("head_config") or {})
     return {"heatmap": head(ctx, "heads.heatmap", y, model_cfg["num_classes"],
                             head_cfg),

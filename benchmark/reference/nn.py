@@ -28,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -178,17 +179,18 @@ def conv_bn_act(ctx: Ctx, name: str, x, cout, k, stride=1, act=F.relu,
 
 
 def dcn_block(ctx: Ctx, name: str, x: torch.Tensor, cout: int,
-              max_displacement: int) -> torch.Tensor:
-    """Modulated deformable 3x3 convolution (DCNv2) with each offset
-    clamped to [-d, d], then BatchNorm and ReLU.
+              max_displacement: Optional[int]) -> torch.Tensor:
+    """Modulated deformable 3x3 convolution (DCNv2), then BatchNorm and
+    ReLU.
 
     Tap t at (ty, tx) of pixel (y, x) is the bilinear sample of x at
-    (y + ty + clamp(dy_t), x + tx + clamp(dx_t)), zero outside the map,
-    times sigmoid(mask_t); the output is sum_t W[:, :, ty + 1, tx + 1]
-    applied to tap t. Offsets come as (dy, dx) pairs a tap, taps in
-    row-major order, from a 3x3 SAME convolution with bias; the mask from
-    another."""
-    d = float(max_displacement)
+    (y + ty + dy_t, x + tx + dx_t), zero outside the map, times
+    sigmoid(mask_t); the output is sum_t W[:, :, ty + 1, tx + 1] applied to
+    tap t. With `max_displacement` None the offsets are unbounded: the
+    exact engine, DCNv2 as torchvision's DeformConv2d computes it. With d
+    each offset is first clamped to [-d, d]: the bounded engines. Offsets
+    come as (dy, dx) pairs a tap, taps in row-major order, from a 3x3 SAME
+    convolution with bias; the mask from another."""
     n, c, h, w = x.shape
     off = conv(ctx, f"{name}.conv_offset", x, 2 * len(TAPS), 3, bias=True,
                kind="dcn_offset")
@@ -197,10 +199,14 @@ def dcn_block(ctx: Ctx, name: str, x: torch.Tensor, cout: int,
     weight = ctx.param(f"{name}.deform.weight", (cout, c, 3, 3), "conv")
     ys = torch.arange(h, dtype=x.dtype, device=x.device).view(1, h, 1)
     xs = torch.arange(w, dtype=x.dtype, device=x.device).view(1, 1, w)
+    d = None if max_displacement is None else float(max_displacement)
     y = 0
     for t, (ty, tx) in enumerate(TAPS):
-        py = ys + ty + off[:, 2 * t].clamp(-d, d)
-        px = xs + tx + off[:, 2 * t + 1].clamp(-d, d)
+        dy, dx = off[:, 2 * t], off[:, 2 * t + 1]
+        if d is not None:
+            dy, dx = dy.clamp(-d, d), dx.clamp(-d, d)
+        py = ys + ty + dy
+        px = xs + tx + dx
         grid = torch.stack([px * (2.0 / max(w - 1, 1)) - 1.0,
                             py * (2.0 / max(h - 1, 1)) - 1.0], dim=-1)
         sample = F.grid_sample(x, grid, mode="bilinear",
@@ -209,6 +215,34 @@ def dcn_block(ctx: Ctx, name: str, x: torch.Tensor, cout: int,
         y = y + F.conv2d(q(ctx, sample),
                          q(ctx, weight[:, :, ty + 1, tx + 1, None, None]))
     return F.relu(bn(ctx, f"{name}.bn", y))
+
+
+def conv_block(ctx: Ctx, name: str, x: torch.Tensor, cout: int,
+               conv_type: str) -> torch.Tensor:
+    """A 3x3 block by the program's `conv_type` name (its
+    models/layers.py:CONV_BLOCKS): `normal` conv + BatchNorm + ReLU; `dcn`
+    and `deformable` the exact DCNv2 block; `dcn_fast` the bounded one at
+    d = 2, `dcn_fast_d<d>` and `dcn_fused_d<d>` at d."""
+    if conv_type == "normal":
+        return conv_bn_act(ctx, name, x, cout, 3)
+    if conv_type in ("dcn", "deformable"):
+        return dcn_block(ctx, name, x, cout, None)
+    if conv_type == "dcn_fast":
+        return dcn_block(ctx, name, x, cout, 2)
+    for prefix in ("dcn_fast_d", "dcn_fused_d"):
+        d = conv_type[len(prefix):]
+        if conv_type.startswith(prefix) and d.isdigit():
+            return dcn_block(ctx, name, x, cout, int(d))
+    raise ValueError(f"the reference has no conv_type {conv_type!r}")
+
+
+def checkpoint_stage(ctx: Ctx, fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(ctx, x), recomputed in the backward where `ctx.checkpoint` asks
+    for it: one stage of a backbone, a neck or a head."""
+    if ctx.checkpoint and torch.is_grad_enabled() and ctx.spec is None:
+        return torch.utils.checkpoint.checkpoint(lambda t: fn(ctx, t), x,
+                                                 use_reentrant=False)
+    return fn(ctx, x)
 
 
 def fan_in_std(shape, gain: float) -> float:

@@ -100,6 +100,9 @@ def test_files_found_by_name():
         assert c["file"] == f"benchmark/configs/{c['name']}.json"
         cfg = manifest.config(c["name"])
         assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
+        reference = manifest.BENCH_DIR / "reference"
+        assert (reference / "backbones" / f"{cfg['backbone']}.py").is_file()
+        assert (reference / "necks" / f"{cfg.get('neck', 'FPN').lower()}.py").is_file()
     for w in b["workloads"]:
         assert w["config"] in configs
         assert manifest.traffic(w["traffic"])["kind"] in ("offline", "train")
