@@ -15,11 +15,13 @@ is the hand-written kernel (ops/peak_decode.py). Tracking (a model with a
 `Tracker` (models/tracker.py), pipelined so that the two overlap. While a
 profiler runs, `gather_detection2d` on images is the span `api.call`
 around `api.prepare`, `api.forward`, `api.decode` and `api.to_host`
-(utils/spans.py).
+(utils/spans.py). compute_dtype "float32_ieee" serves float32 with the
+card's convolutions and matrix products in IEEE float32, not TF32.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import queue
 import threading
@@ -42,8 +44,8 @@ from .utils.viz import draw_boxes
 
 __all__ = ["CenterNetPredictor", "QuantizedCenterNetPredictor", "build_centernet"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+_DTYPES = {"float32": torch.float32, "float32_ieee": torch.float32,
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def _extract_norm(data_cfg: Optional[Dict]) -> tuple:
@@ -67,13 +69,48 @@ def _to_numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         return res
 
 
+class _IEEEFloat32:
+    """While entered, CUDA's float32 convolutions and matrix products
+    round as float32 does, not as TF32 (PyTorch's default for cuDNN's
+    convolutions). The flags are the process's: the first of overlapping
+    forwards turns TF32 off, the last puts the flags back as they were."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.saved = None
+
+    def __enter__(self):
+        with self.lock:
+            if self.depth == 0:
+                self.saved = (torch.backends.cudnn.allow_tf32,
+                              torch.backends.cuda.matmul.allow_tf32)
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self.depth += 1
+
+    def __exit__(self, *exc):
+        with self.lock:
+            self.depth -= 1
+            if self.depth == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = self.saved
+        return False
+
+
+_IEEE_FLOAT32 = _IEEEFloat32()
+
+
 class CenterNetPredictor:
     """Task + weights on one device, with the reference's inference API.
 
-    compute_dtype ("bfloat16", "float16" or "float32"; None keeps float32)
-    casts the weights, BatchNorm statistics included, and the activations;
-    the decode's scores and boxes stay f32. The model is kept in eval mode
-    and `torch.channels_last` memory format.
+    compute_dtype ("bfloat16", "float16", "float32" or "float32_ieee"; None
+    keeps float32) casts the weights, BatchNorm statistics included, and
+    the activations; the decode's scores and boxes stay f32. "float32"
+    leaves TF32 to the process's flags; "float32_ieee" turns TF32 off
+    while its forward runs (`_IEEEFloat32`), for a caller that needs
+    float32's rounding. The model is kept in eval mode and
+    `torch.channels_last` memory format.
     """
 
     def __init__(self, task: CenterNet, image_size=(512, 512),
@@ -93,6 +130,8 @@ class CenterNetPredictor:
         self.image_size = tuple(image_size)
         self.mean = tuple(mean)
         self.std = tuple(std)
+        self._precision = (_IEEE_FLOAT32 if compute_dtype == "float32_ieee"
+                           else contextlib.nullcontext())
         # on the device once, so preprocessing a batch makes no H2D copy
         self._norm = tuple(torch.tensor(v, dtype=self._dtype()).to(self.device)
                            for v in (self.mean, self.std))
@@ -134,7 +173,7 @@ class CenterNetPredictor:
             finally:
                 self.model.eval()
             return outputs, {"batch_stats": stats}
-        with torch.inference_mode():
+        with torch.inference_mode(), self._precision:
             return self.model(x)
 
     def detect(self, images, num_detections: Optional[int] = None,
@@ -144,7 +183,7 @@ class CenterNetPredictor:
         (what `gather_detection2d` copies to the host)."""
         with torch.inference_mode():
             x = self.prepare_images(images)
-            with span("api.forward"):
+            with span("api.forward"), self._precision:
                 outputs = self.model(x)
             with span("api.decode"):
                 return self.task.decode_detections(

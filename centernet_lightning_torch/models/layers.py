@@ -29,7 +29,8 @@ from ..parallel import dist
 from ..ops import dcn_fused, dcn_sample
 
 __all__ = ["BatchNorm1d", "BatchNorm2d", "ConvNormAct", "SeparableConvNormAct",
-           "DeformableConvBlock", "DeformWeight", "Upsample", "Downsample",
+           "DeformableConvBlock", "DeformWeight", "Upsample", "DepthwiseUpsample",
+           "Downsample",
            "Fuse", "SPP", "SameConv2d", "CONV_BLOCKS", "get_conv_block",
            "batch_norm", "same_pads", "bilinear_kernel", "recomputing"]
 
@@ -207,14 +208,20 @@ class SeparableConvNormAct(nn.Module):
         return self.blocks[1](self.blocks[0](x))
 
 
-def bilinear_kernel(k: int, channels: int) -> torch.Tensor:
-    """The bilinear-interpolation transpose-conv kernel, (k, k, C, C) in
-    flax's layout, as the JAX package's `_bilinear_kernel`."""
+def bilinear_filter(k: int) -> torch.Tensor:
+    """The (k, k) bilinear-interpolation filter of a transpose conv of
+    kernel k: 1 - |i - centre| / ceil(k / 2) along each axis."""
     factor = (k + 1) // 2
     center = factor - 1 if k % 2 == 1 else factor - 0.5
     og = torch.arange(k, dtype=torch.float64)
     row = 1 - (og - center).abs() / factor
-    filt = (row[:, None] * row[None, :]).float()
+    return (row[:, None] * row[None, :]).float()
+
+
+def bilinear_kernel(k: int, channels: int) -> torch.Tensor:
+    """The bilinear-interpolation transpose-conv kernel, (k, k, C, C) in
+    flax's layout, as the JAX package's `_bilinear_kernel`."""
+    filt = bilinear_filter(k)
     kernel = torch.zeros(k, k, channels, channels)
     idx = torch.arange(channels)
     kernel[:, :, idx, idx] = filt[:, :, None]
@@ -266,6 +273,23 @@ class Upsample(nn.Module):
         c = self.crop
         y = F.pad(y, (-c, w + c - y.shape[3], -c, h + c - y.shape[2]))
         return F.relu(self.bn(y))
+
+
+class DepthwiseUpsample(nn.ConvTranspose2d):
+    """x`factor` upsample by a depthwise transposed convolution: kernel
+    2 f, stride f, padding f / 2, one group a channel, no bias, and no
+    BatchNorm or activation after it (`IDAUp.up_i` of CenterNet's DLA-34
+    neck, xingyizhou/CenterNet `pose_dla_dcn.py`). An even f maps H x W to
+    f H x f W. `weight` is (C, 1, 2f, 2f); it starts as the bilinear
+    filter in every channel (models/meta.py:init_weights), as upstream's
+    `fill_up_weights`."""
+
+    def __init__(self, channels: int, factor: int):
+        if factor < 2 or factor % 2:
+            raise ValueError(f"DepthwiseUpsample needs an even factor, got {factor}")
+        super().__init__(channels, channels, 2 * factor, stride=factor,
+                         padding=factor // 2, groups=channels, bias=False)
+        self.factor = factor
 
 
 class Downsample(nn.Module):

@@ -20,7 +20,8 @@ from .backbones.mobilenet import SqueezeExcite
 from .backbones.vovnet import ESE
 from .backbones.resnet import BasicBlock, Bottleneck
 from .heads import GenericHead, ReIDClassifier
-from .layers import SPP, DeformableConvBlock, Fuse, Upsample, bilinear_kernel
+from .layers import (SPP, DeformableConvBlock, DepthwiseUpsample, Fuse, Upsample,
+                     bilinear_filter, bilinear_kernel)
 from .necks import build_neck
 
 __all__ = ["GenericModel", "create_model", "init_weights", "param_count_report"]
@@ -186,8 +187,10 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
     biases (flax Dense); a DCN block's offset and mask
     convolutions are zero and its deformable kernel he_normal over fan-in
     k^2 C; a transpose conv is the bilinear kernel, or he_normal over
-    fan-in k^2 C_in; fusion weights are ones. Same distributions, not the
-    same numbers: jax.random and torch differ."""
+    fan-in k^2 C_in; a depthwise upsample (DLA-34's neck) is the bilinear
+    filter in every channel, as upstream's `fill_up_weights`; fusion
+    weights are ones. Same distributions, not the same numbers: jax.random
+    and torch differ."""
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Conv2d):
             plain = name.endswith(("downsample.0", "out_conv"))
@@ -226,5 +229,7 @@ def init_weights(model: GenericModel, generator: torch.Generator) -> None:
             else:
                 # fan-in k^2 C_in, flax's for the (k, k, in, out) kernel
                 _trunc_normal_fan_in(w.transpose(0, 1), 2.0, generator)
+        elif isinstance(mod, DepthwiseUpsample):
+            mod.weight.copy_(bilinear_filter(mod.weight.shape[-1]).expand_as(mod.weight))
         elif isinstance(mod, Fuse) and mod.fuse_weights is not None:
             mod.fuse_weights.fill_(1.0)

@@ -1,5 +1,6 @@
 """Necks (port of models/necks.py: SimpleNeck, FPN, BiFPN, IDA and
-build_neck).
+build_neck), and CenterNet's own DLA-34 neck `DLAUp`, which the JAX
+package does not have.
 
 A neck takes the backbone pyramid [C2, C3, C4, C5] (NCHW) and returns one
 map, `stride` times finer than the coarsest input; FPN and BiFPN can
@@ -21,9 +22,12 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import ConvNormAct, Fuse, Upsample, get_conv_block
+from ..utils.spans import span
+from .layers import (ConvNormAct, DepthwiseUpsample, Fuse, Upsample,
+                     get_conv_block)
 
-__all__ = ["SimpleNeck", "FPN", "BiFPN", "IDA", "NECKS", "build_neck"]
+__all__ = ["SimpleNeck", "FPN", "BiFPN", "IDA", "IDAUp", "DLAUp", "NECKS",
+           "build_neck"]
 
 
 def _ordered_blocks(entries):
@@ -285,6 +289,82 @@ class IDA(nn.Module):
         return levels[0]
 
 
+class IDAUp(nn.Module):
+    """One iterative deep aggregation pass of CenterNet's DLA neck
+    (xingyizhou/CenterNet `pose_dla_dcn.py:IDAUp`). For each input level
+    i >= 1 of `in_channels`: `proj_i`, a 3x3 `conv_type` block to
+    `out_channels`; `up_i`, a `DepthwiseUpsample` by `factors[i]`; and
+    `node_i`, a 3x3 `conv_type` block over the sum with the level before
+    it, each already at the finer resolution."""
+
+    def __init__(self, out_channels: int, in_channels: Sequence[int],
+                 factors: Sequence[int], conv_type: str):
+        super().__init__()
+        block = get_conv_block(conv_type)
+        for i in range(1, len(in_channels)):
+            setattr(self, f"proj_{i}", block(in_channels[i], out_channels, 3))
+            setattr(self, f"up_{i}", DepthwiseUpsample(out_channels, factors[i]))
+            setattr(self, f"node_{i}", block(out_channels, out_channels, 3))
+
+    def forward(self, layers: List[torch.Tensor], start: int, end: int) -> None:
+        """Aggregate layers[start:end] in place, as upstream: layers[i]
+        becomes node_j(up_j(proj_j(layers[i])) + layers[i - 1]), j = i -
+        start, for i from start + 1 up."""
+        for i in range(start + 1, end):
+            j = i - start
+            up = getattr(self, f"up_{j}")(getattr(self, f"proj_{j}")(layers[i]))
+            layers[i] = getattr(self, f"node_{j}")(up + layers[i - 1])
+
+
+class DLAUp(nn.Module):
+    """CenterNet's DLA-34 neck (arXiv:1904.07850; `pose_dla_dcn.py`'s
+    `DLASeg` with down_ratio 4): upstream's `DLAUp(startp, channels,
+    scales)` on the backbone's levels (`ida_0` .. `ida_{n-2}`, coarsest
+    first), then the final `IDAUp(channels[0], channels[:-1], [1, 2, 4,
+    ...])` (`ida_up`) over the finest n - 1 maps it returns. Each level
+    has twice the stride of the one before. Returns the finest map
+    (`in_channels[0]` wide, stride 4 on DLA-34); with DLA-34's [64, 128,
+    256, 512] it holds 16 `conv_type` blocks, upstream's `DeformConv`
+    (DCNv2, BatchNorm, ReLU) with `conv_type: dcn`. The whole forward is
+    the span `neck.dlaup`."""
+
+    def __init__(self, in_channels: Sequence[int], conv_type: str = "dcn"):
+        super().__init__()
+        channels = list(in_channels)
+        n = len(channels)
+        if n < 2:
+            raise ValueError(f"DLAUp needs at least two levels, got {channels}")
+        self.in_channels = tuple(channels)
+        self.out_channels = channels[0]
+        scales = [2 ** i for i in range(n)]
+        widths = list(channels)
+        for i in range(n - 1):
+            j = n - 2 - i
+            setattr(self, f"ida_{i}", IDAUp(channels[j], widths[j:],
+                                            [s // scales[j] for s in scales[j:]],
+                                            conv_type))
+            scales[j + 1:] = [scales[j]] * (n - j - 1)
+            widths[j + 1:] = [channels[j]] * (n - j - 1)
+        self.ida_up = IDAUp(channels[0], channels[:-1],
+                            [2 ** i for i in range(n - 1)], conv_type)
+
+    @property
+    def stride(self) -> int:
+        return 2 ** (len(self.in_channels) - 1)
+
+    def forward(self, features: List[torch.Tensor]) -> torch.Tensor:
+        with span("neck.dlaup"):
+            layers = list(features)
+            n = len(layers)
+            out = [layers[-1]]
+            for i in range(n - 1):
+                getattr(self, f"ida_{i}")(layers, n - 2 - i, n)
+                out.insert(0, layers[-1])
+            y = out[:n - 1]
+            self.ida_up(y, 0, n - 1)
+            return y[-1]
+
+
 NECKS = {
     "SimpleNeck": SimpleNeck,
     "simple": SimpleNeck,
@@ -294,6 +374,8 @@ NECKS = {
     "bifpn": BiFPN,
     "IDA": IDA,
     "ida": IDA,
+    "DLAUp": DLAUp,
+    "dlaup": DLAUp,
 }
 
 

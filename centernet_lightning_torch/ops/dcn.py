@@ -237,10 +237,22 @@ def exact_taps(x: torch.Tensor, offsets: torch.Tensor,
     x (N, H, W, C); offsets (N, H, W, 2k^2); mask (N, H, W, k^2) or None.
     Returns (N, H, W, k^2, C) in x.dtype. A torch function mode sees the
     call whole (parallel/mesh.py's height split gives it the whole map).
+    Each computation is the span `dcn.exact` and counts one in
+    `exact_taps.calls`.
     """
     args = (x, offsets) if mask is None else (x, offsets, mask)
     if has_torch_function(args):
         return handle_torch_function(exact_taps, args, x, offsets, mask, k)
+    exact_taps.calls += 1
+    with span("dcn.exact"):
+        return _exact_taps(x, offsets, mask, k)
+
+
+exact_taps.calls = 0
+
+
+def _exact_taps(x: torch.Tensor, offsets: torch.Tensor,
+                mask: Optional[torch.Tensor], k: int) -> torch.Tensor:
     n, h, w, c = x.shape
     flat = x.reshape(n * h * w, c)
     off = offsets.reshape(n, h, w, k * k, 2).float()

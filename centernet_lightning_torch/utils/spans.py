@@ -24,8 +24,10 @@ Spans: `api.call` (`CenterNetPredictor.gather_detection2d`) around
 `api.to_host` (the copies of the top-k to the host); `train.step`
 (`train/state.py:make_train_step`) around `train.cast`, `train.forward`,
 `train.loss`, `train.backward` and `train.optimizer`; `dcn.recompute`
-(`ops/dcn.py:twin_vjp`, the DCN kernels' backward); `int8_conv.<stage>`
-(`quantize.py`).
+(`ops/dcn.py:twin_vjp`, the DCN kernels' backward); `dcn.exact`
+(`ops/dcn.py:exact_taps`, the exact DCN engine's sampling, counted in
+`exact_taps.calls`); `neck.dlaup` (`models/necks.py:DLAUp.forward`);
+`int8_conv.<stage>` (`quantize.py`).
 """
 from __future__ import annotations
 

@@ -210,3 +210,43 @@ def test_config_copy_matches_the_jax_package():
             warnings.simplefilter("ignore")
             assert t_config.normalize_config(raw) == \
                 j_config.normalize_config(raw), name
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "float32_ieee"])
+def test_tf32_flags_during_the_forward(compute_dtype):
+    """"float32" leaves TF32 to the process's flags; "float32_ieee" turns
+    them off while its forward runs (the raw call and the serving path)
+    and puts them back after, as they were."""
+    pred = t_build({"model": dict(TINY, compute_dtype=compute_dtype)}, device="cpu")
+    assert pred.compute_dtype == torch.float32
+    seen = []
+    pred.model.register_forward_hook(lambda *_: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    try:
+        for flags in [(True, True), (True, False)]:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+            seen.clear()
+            pred(np.zeros((1, 64, 64, 3), np.float32))
+            pred.gather_detection2d(np.zeros((1, 64, 64, 3), np.uint8))
+            inside = (False, False) if compute_dtype == "float32_ieee" else flags
+            assert seen == [inside, inside]
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == flags
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_overlapping_ieee_forwards_restore_the_flags_once():
+    from centernet_lightning_torch.api import _IEEE_FLOAT32
+
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with _IEEE_FLOAT32:
+            with _IEEE_FLOAT32:
+                assert not torch.backends.cudnn.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
